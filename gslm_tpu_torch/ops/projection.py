@@ -1,0 +1,232 @@
+"""Per-Gaussian preprocess: projection, EWA 2D covariance, SH colour, tile
+rects (gslm_tpu/ops/projection.py).
+
+One vectorized pass over all P Gaussians of one camera. Semantics:
+  - frustum cull at view z <= 0.2
+  - projection via the full (proj @ view) matrix with a w + 1e-7 guard;
+    NDC → pixel as ((ndc+1)*size - 1)/2
+  - EWA: cov2d = J W Σ Wᵀ Jᵀ with the 1.3*tanfov clamp on t
+  - low-pass dilation += 0.3 px on the diagonal; with antialiasing the
+    opacity is rescaled by sqrt(det_orig / det_dilated)
+  - radius = ceil(3 sqrt(λ_max)) of the dilated covariance
+  - tile rect = the opacity-aware per-axis AABB of the alpha >= 1/255
+    region, clamped to the grid
+  - SH colour clamped at 0
+The arithmetic is written term by term in the JAX package's order, so the
+float fields agree to rounding and the integer rects exactly.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from gslm_tpu_torch.models.cameras import Camera
+from gslm_tpu_torch.models.gaussians import GaussianParams
+from gslm_tpu_torch.ops.sh import eval_sh
+from gslm_tpu_torch.struct import Struct
+from gslm_tpu_torch.utils.general import quat_normalize
+
+TILE = 16
+NEAR_CULL = 0.2
+LOWPASS = 0.3
+
+# Largest float32 below 2**31: the upper clamp of a float → int32 cast.
+_I32_MAX_F = 2147483520.0
+
+
+@dataclasses.dataclass
+class Splats2D(Struct):
+    """Projected per-Gaussian screen-space data (all (P, ...) tensors).
+    Invisible Gaussians have ``visible=False`` and finite fields."""
+
+    mean2d: torch.Tensor      # (P, 2) pixel coords
+    conic: torch.Tensor       # (P, 3) upper-tri of inverse 2D covariance
+    color: torch.Tensor       # (P, 3) RGB (>= 0)
+    opacity: torch.Tensor     # (P,) effective opacity (AA-rescaled)
+    depth: torch.Tensor       # (P,) view-space z (sort key)
+    invdepth: torch.Tensor    # (P,) 1/z
+    radius: torch.Tensor      # (P,) int32 pixel radius (0 = culled)
+    rect_min: torch.Tensor    # (P, 2) int32 (tx0, ty0)
+    rect_max: torch.Tensor    # (P, 2) int32 (tx1, ty1) exclusive
+    tile_count: torch.Tensor  # (P,) int32 tiles touched
+    visible: torch.Tensor     # (P,) bool
+
+
+def to_int32(x: torch.Tensor) -> torch.Tensor:
+    """float → int32 truncating toward zero, saturating out of range and
+    mapping NaN to 0 (XLA's convert semantics; a bare ``.to(int32)`` of an
+    out-of-range float is undefined)."""
+    x = torch.nan_to_num(x, nan=0.0, posinf=_I32_MAX_F, neginf=-2.0 ** 31)
+    return torch.clamp(x, -2.0 ** 31, _I32_MAX_F).to(torch.int32)
+
+
+def quad_min_rect(a, b, c, dx0, dx1, dy0, dy1):
+    """Exact minimum of q(x,y)=a x² + 2b xy + c y² over the rectangle
+    [dx0,dx1]×[dy0,dy1]: the centre if inside, else the least of the four
+    edges' clamped parabolas."""
+    inside = (dx0 <= 0) & (0 <= dx1) & (dy0 <= 0) & (0 <= dy1)
+    ia = 1.0 / torch.clamp(a, min=1e-12)
+    ic = 1.0 / torch.clamp(c, min=1e-12)
+
+    def q(dx, dy):
+        return a * dx * dx + 2.0 * b * dx * dy + c * dy * dy
+
+    def edge_x(dx):                      # x fixed, minimize over y
+        return q(dx, torch.clamp(-b * dx * ic, dy0, dy1))
+
+    def edge_y(dy):                      # y fixed, minimize over x
+        return q(torch.clamp(-b * dy * ia, dx0, dx1), dy)
+
+    m = torch.minimum(torch.minimum(edge_x(dx0), edge_x(dx1)),
+                      torch.minimum(edge_y(dy0), edge_y(dy1)))
+    return torch.where(inside, 0.0, m)
+
+
+def compute_cov3d(scaling, rotation, scaling_modifier=1.0):
+    """Upper-tri components of Σ = (R S)(R S)ᵀ as six (P,) tensors."""
+    q = quat_normalize(rotation)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    r00 = 1 - 2 * (y * y + z * z)
+    r01 = 2 * (x * y - w * z)
+    r02 = 2 * (x * z + w * y)
+    r10 = 2 * (x * y + w * z)
+    r11 = 1 - 2 * (x * x + z * z)
+    r12 = 2 * (y * z - w * x)
+    r20 = 2 * (x * z - w * y)
+    r21 = 2 * (y * z + w * x)
+    r22 = 1 - 2 * (x * x + y * y)
+    s = scaling * scaling_modifier
+    v0, v1, v2 = s[..., 0] ** 2, s[..., 1] ** 2, s[..., 2] ** 2
+    return dict(
+        xx=r00 * r00 * v0 + r01 * r01 * v1 + r02 * r02 * v2,
+        xy=r00 * r10 * v0 + r01 * r11 * v1 + r02 * r12 * v2,
+        xz=r00 * r20 * v0 + r01 * r21 * v1 + r02 * r22 * v2,
+        yy=r10 * r10 * v0 + r11 * r11 * v1 + r12 * r12 * v2,
+        yz=r10 * r20 * v0 + r11 * r21 * v1 + r12 * r22 * v2,
+        zz=r20 * r20 * v0 + r21 * r21 * v1 + r22 * r22 * v2)
+
+
+def preprocess(params: GaussianParams, camera: Camera, *,
+               active_sh_degree: int, antialiasing: bool = False,
+               scaling_modifier: float = 1.0,
+               alive: torch.Tensor | None = None) -> Splats2D:
+    """Project all Gaussians into one camera."""
+    xyz = params.xyz
+    W, H = camera.width, camera.height
+    fx = W / (2.0 * camera.tanfovx)
+    fy = H / (2.0 * camera.tanfovy)
+
+    def xform(m):
+        """rows of (m @ [xyz, 1]) for a (rows, 4) slice m."""
+        return [m[r, 0] * xyz[:, 0] + m[r, 1] * xyz[:, 1]
+                + m[r, 2] * xyz[:, 2] + m[r, 3] for r in range(m.shape[0])]
+
+    wv = camera.world_view
+    tx_, ty_, tz_ = xform(wv[:3])
+    hx, hy, hz, hw = xform(camera.full_proj)
+    inv_w = 1.0 / (hw + 1e-7)
+    p_x, p_y = hx * inv_w, hy * inv_w
+
+    in_front = tz_ > NEAR_CULL
+    tz = torch.where(in_front, tz_, 1.0)         # sanitized z
+
+    mean2d = torch.stack([((p_x + 1.0) * W - 1.0) * 0.5,
+                          ((p_y + 1.0) * H - 1.0) * 0.5], dim=-1)
+
+    # --- EWA 2D covariance ---
+    cov3d = compute_cov3d(params.get_scaling(), params.rotation,
+                          scaling_modifier)
+    limx = 1.3 * camera.tanfovx
+    limy = 1.3 * camera.tanfovy
+    txz = torch.clamp(tx_ / tz, -limx, limx) * tz
+    tyz = torch.clamp(ty_ / tz, -limy, limy) * tz
+
+    j00 = fx / tz
+    j02 = -(fx * txz) / (tz * tz)
+    j11 = fy / tz
+    j12 = -(fy * tyz) / (tz * tz)
+    Wrot = wv[:3, :3]
+    T0 = [j00 * Wrot[0, k] + j02 * Wrot[2, k] for k in range(3)]
+    T1 = [j11 * Wrot[1, k] + j12 * Wrot[2, k] for k in range(3)]
+
+    def sig_row(v):
+        return [cov3d["xx"] * v[0] + cov3d["xy"] * v[1] + cov3d["xz"] * v[2],
+                cov3d["xy"] * v[0] + cov3d["yy"] * v[1] + cov3d["yz"] * v[2],
+                cov3d["xz"] * v[0] + cov3d["yz"] * v[1] + cov3d["zz"] * v[2]]
+
+    U0 = sig_row(T0)
+    U1 = sig_row(T1)
+    c00 = U0[0] * T0[0] + U0[1] * T0[1] + U0[2] * T0[2]
+    c01 = U0[0] * T1[0] + U0[1] * T1[1] + U0[2] * T1[2]
+    c11 = U1[0] * T1[0] + U1[1] * T1[1] + U1[2] * T1[2]
+    det_orig = c00 * c11 - c01 * c01
+    c00d = c00 + LOWPASS
+    c11d = c11 + LOWPASS
+    det = c00d * c11d - c01 * c01
+    det_ok = det > 0.0
+    inv_det = torch.where(det_ok, 1.0 / torch.where(det_ok, det, 1.0), 0.0)
+    conic = torch.stack([c11d * inv_det, -c01 * inv_det, c00d * inv_det], -1)
+
+    if antialiasing:
+        conv_scale = torch.sqrt(torch.clamp(torch.where(
+            det_ok, det_orig / torch.where(det_ok, det, 1.0), 1e-6), min=1e-6))
+    else:
+        conv_scale = torch.ones_like(det)
+
+    opacity = torch.sigmoid(params.opacity[:, 0]) * conv_scale
+
+    # --- screen radius & opacity-aware tile rect ---
+    mid = 0.5 * (c00d + c11d)
+    lam1 = mid + torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
+    radius_f = torch.ceil(3.0 * torch.sqrt(lam1))
+
+    s2 = 2.0 * torch.log(torch.clamp(opacity * 255.0, min=1e-12))
+    opa_vis = s2 > 0.0
+    s2 = torch.clamp(s2, min=0.0)
+    margin = 0.01
+    rx = torch.sqrt(s2 * torch.clamp(c00d, min=0.0)) + margin
+    ry = torch.sqrt(s2 * torch.clamp(c11d, min=0.0)) + margin
+
+    ntx = -(-W // TILE)
+    nty = -(-H // TILE)
+    px, py = mean2d[:, 0], mean2d[:, 1]
+    # truncate toward zero, then floor-divide (the JAX astype + //)
+    tx0 = torch.clamp(torch.div(to_int32(px - rx), TILE, rounding_mode="floor"),
+                      0, ntx)
+    ty0 = torch.clamp(torch.div(to_int32(py - ry), TILE, rounding_mode="floor"),
+                      0, nty)
+    tx1 = torch.clamp(to_int32((px + rx + TILE - 1) / TILE), 0, ntx)
+    ty1 = torch.clamp(to_int32((py + ry + TILE - 1) / TILE), 0, nty)
+    tile_count = (torch.clamp(tx1 - tx0, min=0)
+                  * torch.clamp(ty1 - ty0, min=0))
+
+    visible = in_front & det_ok & opa_vis & (radius_f > 0) & (tile_count > 0)
+    if alive is not None:
+        visible = visible & alive
+    tile_count = torch.where(visible, tile_count, 0)
+    radius = torch.where(visible, radius_f, 0.0).to(torch.int32)
+
+    # --- colour ---
+    dirs = xyz - camera.campos
+    dirs = dirs / torch.clamp(
+        torch.linalg.vector_norm(dirs, dim=-1, keepdim=True), min=1e-12)
+    color = torch.clamp(
+        eval_sh(active_sh_degree, params.get_features(), dirs) + 0.5, min=0.0)
+
+    # --- sanitize invisible rows so gathers stay NaN-free ---
+    vis_f = visible.to(mean2d.dtype)[:, None]
+    mean2d = (torch.where(torch.isfinite(mean2d), mean2d, 0.0) * vis_f
+              - (1.0 - vis_f) * 1e4)
+    conic = torch.nan_to_num(conic, nan=0.0, posinf=0.0, neginf=0.0) * vis_f
+    color = torch.nan_to_num(color, nan=0.0, posinf=0.0, neginf=0.0)
+    opacity = torch.where(visible, opacity, 0.0)
+    depth = torch.where(visible, tz, torch.inf)
+    invdepth = torch.where(visible, 1.0 / tz, 0.0)
+
+    return Splats2D(mean2d=mean2d, conic=conic, color=color, opacity=opacity,
+                    depth=depth, invdepth=invdepth, radius=radius,
+                    rect_min=torch.stack([tx0, ty0], -1).to(torch.int32),
+                    rect_max=torch.stack([tx1, ty1], -1).to(torch.int32),
+                    tile_count=tile_count.to(torch.int32), visible=visible)

@@ -1,0 +1,68 @@
+"""Real spherical-harmonics evaluation, degrees 0..3 (gslm_tpu/ops/sh.py).
+
+Layout: coefficients are (..., K, 3) with K = (deg+1)^2, dc first."""
+
+from __future__ import annotations
+
+import torch
+
+C0 = 0.28209479177387814
+C1 = 0.4886025119029199
+C2 = (1.0925484305920792, -1.0925484305920792, 0.31539156525252005,
+      -1.0925484305920792, 0.5462742152960396)
+C3 = (-0.5900435899266435, 2.890611442640554, -0.4570457994644658,
+      0.3731763325901154, -0.4570457994644658, 1.445305721320277,
+      -0.5900435899266435)
+
+MAX_SH_DEGREE = 3
+
+
+def num_sh_coeffs(deg: int) -> int:
+    return (deg + 1) ** 2
+
+
+def sh_basis(deg: int, dirs: torch.Tensor) -> torch.Tensor:
+    """Real SH basis at unit directions (..., 3) → (..., (deg+1)^2)."""
+    if not 0 <= deg <= MAX_SH_DEGREE:
+        raise ValueError(f"SH degree {deg} not in [0, {MAX_SH_DEGREE}]")
+    x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]
+    cols = [torch.full_like(x, C0)]
+    if deg > 0:
+        cols += [-C1 * y, C1 * z, -C1 * x]
+    if deg > 1:
+        xx, yy, zz = x * x, y * y, z * z
+        xy, yz, xz = x * y, y * z, x * z
+        cols += [
+            C2[0] * xy,
+            C2[1] * yz,
+            C2[2] * (2.0 * zz - xx - yy),
+            C2[3] * xz,
+            C2[4] * (xx - yy),
+        ]
+    if deg > 2:
+        cols += [
+            C3[0] * y * (3 * xx - yy),
+            C3[1] * xy * z,
+            C3[2] * y * (4 * zz - xx - yy),
+            C3[3] * z * (2 * zz - 3 * xx - 3 * yy),
+            C3[4] * x * (4 * zz - xx - yy),
+            C3[5] * z * (xx - yy),
+            C3[6] * x * (xx - 3 * yy),
+        ]
+    return torch.stack(cols, dim=-1)
+
+
+def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """SH color: sh (..., K, 3) at unit dirs (..., 3) → (..., 3). Only the
+    first (deg+1)^2 coefficients participate."""
+    k = num_sh_coeffs(deg)
+    basis = sh_basis(deg, dirs)
+    return torch.sum(basis[..., None] * sh[..., :k, :], dim=-2)
+
+
+def rgb2sh(rgb):
+    return (rgb - 0.5) / C0
+
+
+def sh2rgb(sh):
+    return sh * C0 + 0.5

@@ -1,0 +1,165 @@
+"""High-level render API (gslm_tpu/renderer.py): ``render`` one view,
+``batch_render`` a camera batch as one raster problem.
+
+Forward only in this slice: both entry points run under ``torch.no_grad``.
+``alive=None`` masks with ``params.alive`` (the JAX package takes the mask
+as an argument; dead slots are transparent either way).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from gslm_tpu_torch.models.cameras import Camera, CameraBatch
+from gslm_tpu_torch.models.gaussians import GaussianParams
+from gslm_tpu_torch.ops.projection import TILE, Splats2D, preprocess
+from gslm_tpu_torch.ops.rasterize_cuda import rasterize_cuda
+from gslm_tpu_torch.ops.rasterize_ref import rasterize_ref
+from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig, _cdiv
+from gslm_tpu_torch.struct import Struct
+
+
+@dataclasses.dataclass
+class RenderOutput(Struct):
+    render: torch.Tensor         # (3, H, W) in [0, 1]; (B, 3, H, W) batched
+    invdepth: torch.Tensor       # (1, H, W)
+    radii: torch.Tensor          # (P,) int32; (B, P) batched
+    visibility: torch.Tensor     # (P,) bool
+    n_duplicates: torch.Tensor   # () diagnostics
+    overflow: torch.Tensor       # () int32
+    max_tile_load: torch.Tensor  # ()
+
+
+def resolve_impl(impl: str) -> str:
+    """"auto"/"cuda" → the CUDA compositor path, "ref" → dense golden; the
+    JAX names of paths not ported yet raise."""
+    if impl in ("auto", "cuda"):
+        return "cuda"
+    if impl == "ref":
+        return "ref"
+    raise NotImplementedError(
+        f"impl={impl!r} is not ported to gslm_tpu_torch yet; use 'auto', "
+        "'cuda' or 'ref'")
+
+
+def apply_exposure(image: torch.Tensor, exposure: torch.Tensor) -> torch.Tensor:
+    """image (..., 3, H, W), exposure (..., 3, 4) affine:
+    out_d = Σ_c img_c E[c,d] + E[d,3]. Written as elementwise terms so a
+    batched and a single-view render agree bit for bit."""
+    m = exposure[..., :3, :3, None, None]                # (..., 3, 3, 1, 1)
+    out = (image[..., 0:1, :, :] * m[..., 0, :, :, :]
+           + image[..., 1:2, :, :] * m[..., 1, :, :, :]
+           + image[..., 2:3, :, :] * m[..., 2, :, :, :])
+    return out + exposure[..., :3, 3, None, None]
+
+
+def _pre(params, camera, config, active_sh_degree, scaling_modifier, alive):
+    return preprocess(params, camera, active_sh_degree=active_sh_degree,
+                      antialiasing=config.antialiasing,
+                      scaling_modifier=scaling_modifier,
+                      alive=params.alive if alive is None else alive)
+
+
+def _output(image, invdepth, radii, out) -> RenderOutput:
+    return RenderOutput(
+        render=torch.clamp(image, 0.0, 1.0), invdepth=invdepth, radii=radii,
+        visibility=radii > 0, n_duplicates=torch.as_tensor(out["n_duplicates"]),
+        overflow=torch.as_tensor(out["overflow"]).to(torch.int32),
+        max_tile_load=torch.as_tensor(out["max_tile_load"]))
+
+
+@torch.no_grad()
+def render(params: GaussianParams, camera: Camera, bg: torch.Tensor, *,
+           config: RasterConfig = RasterConfig(),
+           active_sh_degree: int | None = None,
+           scaling_modifier: float = 1.0,
+           use_trained_exp: bool = False,
+           alive: torch.Tensor | None = None,
+           impl: str | None = None) -> RenderOutput:
+    """Render one view. ``impl`` (default ``config.impl``): "auto"/"cuda"
+    (kernel A on CUDA tensors, its plain version on CPU tensors) or "ref"."""
+    impl = resolve_impl(config.impl if impl is None else impl)
+    if active_sh_degree is None:
+        active_sh_degree = params.sh_degree
+    splats = _pre(params, camera, config, active_sh_degree, scaling_modifier,
+                  alive)
+    if impl == "ref":
+        out = rasterize_ref(splats, camera.height, camera.width, bg)
+        zero = torch.zeros((), dtype=torch.int64, device=bg.device)
+        out.update(n_duplicates=zero, overflow=zero, max_tile_load=zero)
+    else:
+        out = rasterize_cuda(splats, camera.height, camera.width, bg, config)
+    image = out["render"]
+    if use_trained_exp:
+        image = apply_exposure(image, params.exposure[camera.exposure_idx])
+    return _output(image, out["invdepth"], splats.radius, out)
+
+
+def stack_views(params: GaussianParams, cameras: CameraBatch, *,
+                config: RasterConfig = RasterConfig(),
+                active_sh_degree: int | None = None,
+                scaling_modifier: float = 1.0,
+                alive: torch.Tensor | None = None):
+    """Preprocess every view and stack the B per-view tile grids vertically
+    into one canvas: view v's tile rows are offset by v*nty, its splat
+    coordinates stay view-local (the compositor wraps tile rows modulo
+    nty). Returns ``(splats (B*P, ...), per-view radii (B, P), nty)``.
+
+    The views are preprocessed one at a time, each exactly as ``render``
+    does it, so the stacked records are bit for bit the single-view ones."""
+    if active_sh_degree is None:
+        active_sh_degree = params.sh_degree
+    nty = _cdiv(cameras.height, TILE)
+    views = [_pre(params, cameras.view(i), config, active_sh_degree,
+                  scaling_modifier, alive) for i in range(cameras.batch_size)]
+    fields = {f.name: torch.cat([getattr(s, f.name) for s in views])
+              for f in dataclasses.fields(Splats2D)}
+    P = params.capacity
+    voff = torch.arange(len(views), dtype=torch.int32,
+                        device=params.xyz.device).repeat_interleave(P) * nty
+    for k in ("rect_min", "rect_max"):
+        r = fields[k].clone()
+        r[:, 1] += voff
+        fields[k] = r
+    radii = torch.stack([s.radius for s in views])
+    return Splats2D(**fields), radii, nty
+
+
+@torch.no_grad()
+def batch_render(params: GaussianParams, cameras: CameraBatch,
+                 bg: torch.Tensor, *, config: RasterConfig = RasterConfig(),
+                 active_sh_degree: int | None = None,
+                 scaling_modifier: float = 1.0,
+                 use_trained_exp: bool = False,
+                 alive: torch.Tensor | None = None,
+                 impl: str | None = None) -> RenderOutput:
+    """Render a padded camera batch as ONE raster problem: one
+    duplicate/sort/ranges pass and one compositor launch cover all views
+    (``stack_views``). Within each tile the global depth order restricted to
+    that view's Gaussians is the view's own depth order, so view v of the
+    batch equals ``render`` of view v. Output fields gain a leading B
+    axis."""
+    impl = resolve_impl(config.impl if impl is None else impl)
+    if impl == "ref":
+        outs = [render(params, cameras.view(i), bg, config=config,
+                       active_sh_degree=active_sh_degree,
+                       scaling_modifier=scaling_modifier,
+                       use_trained_exp=use_trained_exp, alive=alive,
+                       impl=impl) for i in range(cameras.batch_size)]
+        return RenderOutput(**{f.name: torch.stack([getattr(o, f.name)
+                                                    for o in outs])
+                               for f in dataclasses.fields(RenderOutput)})
+
+    H, W = cameras.height, cameras.width
+    B = cameras.batch_size
+    splats, radii, nty = stack_views(
+        params, cameras, config=config, active_sh_degree=active_sh_degree,
+        scaling_modifier=scaling_modifier, alive=alive)
+    out = rasterize_cuda(splats, B * nty * TILE, W, bg, config, view_rows=nty)
+    image = out["render"].reshape(3, B, nty * TILE, W)[:, :, :H].transpose(0, 1)
+    invd = out["invdepth"].reshape(1, B, nty * TILE, W)[:, :, :H].transpose(0, 1)
+    if use_trained_exp:
+        image = apply_exposure(image, params.exposure[cameras.exposure_idx])
+    return _output(image, invd, radii, out)

@@ -1,0 +1,47 @@
+"""Camera/projection math (numpy), the port's copy of gslm_tpu/utils/graphics.py.
+
+Matrices are row-major "matrix @ column vector"; the rasterizer consumes the
+untransposed form directly."""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+
+def world_to_view(R: np.ndarray, t: np.ndarray,
+                  translate=np.array([0.0, 0.0, 0.0]), scale: float = 1.0) -> np.ndarray:
+    """World→camera 4x4. ``R`` is the COLMAP-convention camera rotation
+    (stored transposed), ``t`` the translation; ``translate``/``scale``
+    recenter/rescale the scene."""
+    Rt = np.zeros((4, 4), dtype=np.float64)
+    Rt[:3, :3] = R.T
+    Rt[:3, 3] = t
+    Rt[3, 3] = 1.0
+
+    c2w = np.linalg.inv(Rt)
+    cam_center = (c2w[:3, 3] + translate) * scale
+    c2w[:3, 3] = cam_center
+    return np.linalg.inv(c2w).astype(np.float32)
+
+
+def projection_matrix(znear: float, zfar: float, fovx: float, fovy: float) -> np.ndarray:
+    """OpenGL-style perspective projection (z_sign=+1, row 3 = [0,0,1,0])."""
+    tan_half_fovy = math.tan(fovy / 2)
+    tan_half_fovx = math.tan(fovx / 2)
+
+    top = tan_half_fovy * znear
+    right = tan_half_fovx * znear
+
+    P = np.zeros((4, 4), dtype=np.float32)
+    P[0, 0] = znear / right
+    P[1, 1] = znear / top
+    P[2, 2] = zfar / (zfar - znear)
+    P[2, 3] = -(zfar * znear) / (zfar - znear)
+    P[3, 2] = 1.0
+    return P
+
+
+def focal2fov(focal: float, pixels: float) -> float:
+    return 2 * math.atan(pixels / (2 * focal))

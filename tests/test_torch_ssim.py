@@ -1,0 +1,56 @@
+"""gslm_tpu_torch SSIM path (ops/blur_cuda.py, kernel B's module, and
+ops/ssim.py) against gslm_tpu.
+
+Kernel B's plain version against the JAX Pallas blur in interpret mode:
+atol 1e-6 (same taps, same tap order, f32 rounding only). SSIM map against
+JAX's CPU SSIM (a dense conv at HIGH precision there): atol 1e-5; PSNR
+1e-4 dB. The card test (tests/test_torch_cuda.py) holds kernel B against the
+plain version."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from gslm_tpu.ops.blur_pallas import blur_same as j_blur_same
+from gslm_tpu.ops.ssim import ssim as j_ssim
+from gslm_tpu.ops.ssim import ssim_map as j_ssim_map
+from gslm_tpu.utils.image import psnr as j_psnr
+from gslm_tpu_torch.ops.blur_cuda import blur_plain, blur_same
+from gslm_tpu_torch.ops.ssim import gaussian_taps, ssim, ssim_map
+from gslm_tpu_torch.utils.image import mse, psnr
+
+
+def _images(seed, shape=(3, 40, 72)):
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0, 1, shape).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.1, shape), 0, 1).astype(np.float32)
+    return a, b
+
+
+def test_blur_plain_matches_pallas_blur():
+    x, _ = _images(0)
+    taps = gaussian_taps()
+    want = np.asarray(j_blur_same(jnp.asarray(x), taps, interpret=True))
+    got = blur_same(torch.tensor(x), taps)          # CPU → plain version
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
+    np.testing.assert_array_equal(blur_plain(torch.tensor(x), taps).numpy(),
+                                  got.numpy())
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_ssim_psnr_match_jax(batched):
+    a, b = _images(1)
+    if batched:
+        a, b = a[None], b[None]
+    ja, jb = jnp.asarray(a), jnp.asarray(b)
+    ta, tb = torch.tensor(a), torch.tensor(b)
+    np.testing.assert_allclose(ssim_map(ta, tb).numpy(),
+                               np.asarray(j_ssim_map(ja, jb)), atol=1e-5)
+    assert abs(float(ssim(ta, tb)) - float(j_ssim(ja, jb))) < 1e-5
+    np.testing.assert_allclose(psnr(ta, tb).numpy(),
+                               np.asarray(j_psnr(ja, jb)), atol=1e-4)
+    assert float(mse(ta, tb).mean()) == pytest.approx(
+        float(np.mean((a - b) ** 2)), rel=1e-5)
+
