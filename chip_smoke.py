@@ -2,25 +2,40 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path (render a batch of views, score them) at
-full width and checks it, in phases; any failed phase exits non-zero:
+Drives the port's two paths at full width and checks them, in phases; any
+failed phase exits non-zero:
 
 1. card and build: the card's name and power limit; nvcc builds every
    kernel of ``gslm_tpu_torch/csrc`` (one process per source, in parallel).
 2. each kernel against its plain PyTorch version on the card: kernel A
    (tile compositor) on one 1920x1080 view of the headline scene, kernel B
    (SSIM blur) on (15, 1080, 1920) planes. TF32 is off for matmul and cuDNN.
-3. main path: ``batch_render`` of the 131,072-Gaussian SH-3 scene
-   (spread 1.5, log-scales in [-5.5, -3.5], seed 0) in a 4-view 1920x1080
-   batch, then ``pair_metrics`` of every view against its ground truth.
-   Checks: no overflow, finite images, kernel A launched once and kernel B
-   once per pair, every batched view equal bit for bit to its single-view
-   render, kernel A against its plain version on the main path's own
-   4-view stack (tile rows wrapping per view), and the kernel path against
-   the dense golden rasterizer on a small scene.
-4. timings (CUDA events, median after warm-up), stage breakdown, records
-   walked, kernel A's pairs by gate outcome and each kernel's bound.
-5. a ``{"kernels": [...]}`` line, then the last line
+3. serving: ``batch_render`` of the 131,072-Gaussian SH-3 scene (spread
+   1.5, log-scales in [-5.5, -3.5], seed 0) in a 4-view 1920x1080 batch,
+   then ``pair_metrics`` of every view against its ground truth, under
+   ``torch.no_grad()``. Checks: no overflow, finite images, kernel A
+   launched once, kernel B once per pair and kernel C never, every batched
+   view equal bit for bit to its single-view render, kernel A against its
+   plain version on the path's own 4-view stack (tile rows wrapping per
+   view), and the kernel path against the dense golden rasterizer on a
+   small scene.
+4. serving timings (CUDA events, median after warm-up), stage breakdown,
+   records walked, kernel A's pairs by gate outcome and each kernel's bound.
+5. training: ``train_step`` (one Adam iteration, bench.py's setting: the
+   same scene with 50 exposure images, one 1920x1080 view, step 100,
+   default options, depth weight 0, no sparse Adam, statistics on) against
+   a reachable target, the port's own render of the scene with
+   ``features_dc`` shifted by a seeded offset. Checks: per step kernel A
+   once, kernel B twice (forward and VJP) and kernel C (backward
+   compositor) once; kernel C against its plain version on the step's own
+   records and cotangents (knife-edge bound per field) and bit for bit
+   against itself; the blur VJP against the plain reversed-tap blur; every
+   group's gradient through the kernels against the gradient through the
+   plain compositor (the plain versions patched in here); finite
+   gradients, parameters and statistics; ``denom`` rising by exactly the
+   visible count; the loss falling over 10 steps. Then timings: the step,
+   its stages, the device-busy share, kernel C's bound.
+6. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of gslm_tpu. Without CUDA it exits non-zero
@@ -39,9 +54,13 @@ import time
 import numpy as np
 
 N_GAUSS, H, W, VIEWS = 131_072, 1080, 1920, 4
-# bench.py's single-view capacities, scaled to the 4-view stack
+# bench.py's single-view capacities (bench.py:196-199): the training view
+TRAIN_CAPS = dict(dup_capacity=1_638_400, live_capacity=1_280_000, cull=True)
+# ... scaled to the 4-view serving stack
 CAPS = dict(dup_capacity=VIEWS * 1_638_400, live_capacity=VIEWS * 1_280_000,
             cull=True)
+EXPOSURES = 50         # bench.py's exposure images
+TRAIN_STEPS = 10       # steps over which the loss must fall
 PEAK_FP32 = 67e12      # H100 SXM fp32 outside the tensor cores, FLOP/s
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s
 # Issue rates behind PEAK_FP32 (an FMA counts two FLOPs): 128 fp32 lanes
@@ -56,6 +75,14 @@ A_EVAL = (9, 0)       # dx, dy, power, then the power > 0 gate
 A_EXP = (7, 1)        # past it: expf (one MUFU.EX2), opacity, the 0.99 clip
 A_CONTRIB = (23, 1)   # past the 1/255 gate: log1pf (16), lsum, expf
 A_ACC = (5, 0)        # T_after >= 1e-4: weight and four accumulators
+# Kernel C's, counted the same way in csrc/composite_bwd.cu, for pairs
+# before the pixel's exit (pairs at or past it cost an integer compare):
+C_EVAL = (9, 0)       # dx, dy, power, then the power > 0 gate
+C_EXP = (7, 1)        # past it: expf (MUFU.EX2), opacity, the 0.99 clip
+C_CONTRIB = (55, 2)   # contributing: log1pf (16), T = expf (MUFU.EX2),
+#                       S / (1 - a) (MUFU.RCP), dw, da, S, the 10 terms
+C_SUM = (10, 0)       # the least reduction: one add per nonzero term (the
+#                       kernel's warp shuffles issue 50 FADD per lane)
 
 
 def check(cond, what: str):
@@ -111,12 +138,33 @@ def device_busy(fn) -> tuple[int, float, float]:
     return len(kernels), busy, wall
 
 
-def knife_edge_ok(got, want) -> tuple[bool, float]:
-    """The random-scene bound of the parity tests: mean |Δ| < 2e-4 and at
-    most 1% of values with |Δ| > 1e-3. Returns (ok, max |Δ|)."""
+def knife_edge_ok(got, want, scale: float = 1.0) -> tuple[bool, float]:
+    """The random-scene bound of the parity tests, relative to ``scale``:
+    mean |Δ| < 2e-4·scale and at most 1% of values with |Δ| > 1e-3·scale.
+    Returns (ok, max |Δ|)."""
     d = (got - want).abs()
-    ok = float(d.mean()) < 2e-4 and float((d > 1e-3).float().mean()) <= 0.01
+    ok = (float(d.mean()) < 2e-4 * scale
+          and float((d > 1e-3 * scale).float().mean()) <= 0.01)
     return ok, float(d.max())
+
+
+def _pair_geometry(records, starts, tiles, S, ntx, view_rows):
+    """Records of G tiles over S slots and their power at every pixel:
+    (rec (G, S, 10), power (G, S, 256))."""
+    import torch
+
+    from gslm_tpu_torch.ops.rasterize_cuda import _tile_pixels
+    slot = torch.arange(S, device=records.device)
+    idx = torch.clamp(starts[tiles, None].long() + slot[None], 0,
+                      records.shape[0] - 1)
+    rec = records[idx]
+    px, py = _tile_pixels(tiles, ntx, view_rows)
+    dx = rec[..., 0, None] - px[:, None]                      # (G, S, 256)
+    dy = rec[..., 1, None] - py[:, None]
+    power = (-0.5 * (rec[..., 2, None] * dx * dx
+                     + rec[..., 4, None] * dy * dy)
+             - rec[..., 3, None] * dx * dy)
+    return rec, power
 
 
 def pair_work(records, starts, counts, ntx: int, view_rows: int,
@@ -128,7 +176,7 @@ def pair_work(records, starts, counts, ntx: int, view_rows: int,
     import torch
 
     from gslm_tpu_torch.ops.composite import ALPHA_MAX, ALPHA_MIN, T_EPS
-    from gslm_tpu_torch.ops.rasterize_cuda import PIX, _tile_pixels
+    from gslm_tpu_torch.ops.rasterize_cuda import PIX
     dev = records.device
     ntiles = counts.shape[0]
     S = max(int(counts.max()), 1)
@@ -138,15 +186,8 @@ def pair_work(records, starts, counts, ntx: int, view_rows: int,
     for t0 in range(0, ntiles, G):
         tiles = torch.arange(t0, min(t0 + G, ntiles), device=dev)
         valid = (slot[None] < counts[tiles, None])[..., None]    # (G, S, 1)
-        idx = torch.clamp(starts[tiles, None].long() + slot[None], 0,
-                          records.shape[0] - 1)
-        rec = records[idx]
-        px, py = _tile_pixels(tiles, ntx, view_rows)
-        dx = rec[..., 0, None] - px[:, None]                      # (G, S, 256)
-        dy = rec[..., 1, None] - py[:, None]
-        power = (-0.5 * (rec[..., 2, None] * dx * dx
-                         + rec[..., 4, None] * dy * dy)
-                 - rec[..., 3, None] * dx * dy)
+        rec, power = _pair_geometry(records, starts, tiles, S, ntx,
+                                    view_rows)
         past_exp = valid & (power <= 0.0)
         alpha = torch.clamp(
             rec[..., 5, None] * torch.exp(torch.where(past_exp, power, -100.0)),
@@ -160,6 +201,39 @@ def pair_work(records, starts, counts, ntx: int, view_rows: int,
                           (past_con & live).sum(),
                           (past_con & live & (fail == 0)).sum()])
     return [int(v) for v in n.tolist()]
+
+
+def bwd_pair_work(records, starts, counts, ntx: int, view_rows: int, state,
+                  max_elems: int = 1 << 25) -> tuple[list[int], int]:
+    """Kernel C's work on these inputs from the plain arithmetic and kernel
+    A's exit state: ([pairs walked (records below the tile's largest exit
+    position, times 256), evaluated (before the pixel's own exit), past the
+    power gate, contributing (past the 1/255 gate)], records walked)."""
+    import torch
+
+    from gslm_tpu_torch.ops.composite import ALPHA_MAX, ALPHA_MIN
+    from gslm_tpu_torch.ops.rasterize_cuda import PIX
+    dev = records.device
+    ntiles = counts.shape[0]
+    exit_pos = state[:, 1].long()                               # (T, 256)
+    n_eff = exit_pos.amax(dim=1)
+    S = max(int(n_eff.max()), 1)
+    G = max(1, max_elems // (S * PIX))
+    slot = torch.arange(S, device=dev)
+    n = torch.zeros(4, dtype=torch.long, device=dev)
+    for t0 in range(0, ntiles, G):
+        tiles = torch.arange(t0, min(t0 + G, ntiles), device=dev)
+        rec, power = _pair_geometry(records, starts, tiles, S, ntx,
+                                    view_rows)
+        ev = slot[None, :, None] < exit_pos[tiles, None, :]      # (G, S, 256)
+        past = ev & (power <= 0.0)
+        alpha = torch.clamp(
+            rec[..., 5, None] * torch.exp(torch.where(past, power, -100.0)),
+            max=ALPHA_MAX)
+        con = past & (alpha >= ALPHA_MIN)
+        n += torch.stack([(slot[None] < n_eff[tiles, None]).sum() * PIX,
+                          ev.sum(), past.sum(), con.sum()])
+    return [int(v) for v in n.tolist()], int(n_eff.sum())
 
 
 def main() -> int:
@@ -177,10 +251,37 @@ def run(dev, n_gauss: int, height: int, width: int) -> None:
     import torch
 
     from gslm_tpu_torch import _build
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(f"card: {card}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("tf32: off for matmul and cuDNN (the library yardstick conv runs "
+          "in full fp32)", flush=True)
+    t0 = time.perf_counter()
+    _build.build_all(verbose=True)
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a, "
+          f"{len(_build.SIGNATURES)} kernels in parallel)", flush=True)
+
+    tag = f"[{card}]"
+    kernels = serve_phase(dev, n_gauss, height, width, tag)
+    kernels.append(train_phase(dev, n_gauss, height, width, tag, kernels))
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+
+
+def serve_phase(dev, n_gauss: int, height: int, width: int,
+                tag: str) -> list[dict]:
+    """Phases 2-4. Returns the kernel entries of A and B."""
+    import torch
+
     from gslm_tpu_torch.eval.metrics import pair_metrics
     from gslm_tpu_torch.ops.blur_cuda import blur_plain, blur_same
     from gslm_tpu_torch.ops.projection import preprocess
-    from gslm_tpu_torch.ops.rasterize_cuda import (composite_tiles,
+    from gslm_tpu_torch.ops.rasterize_cuda import (IMG_ROWS, OUT_ROWS,
+                                                   composite_tiles,
+                                                   composite_tiles_bwd,
                                                    composite_tiles_plain,
                                                    tile_records)
     from gslm_tpu_torch.ops.rasterize_tiled import (RasterConfig, _cdiv,
@@ -190,20 +291,6 @@ def run(dev, n_gauss: int, height: int, width: int) -> None:
     from gslm_tpu_torch.renderer import batch_render, render, stack_views
     from gslm_tpu_torch.utils.synthetic import (random_gaussians,
                                                 ring_camera_batch)
-
-    # ---- 1. card and build ------------------------------------------------
-    card = card_line()
-    kind = torch.cuda.get_device_name(0)
-    print(f"card: {card}", flush=True)
-    tag = f"[{card}]"
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print("tf32: off for matmul and cuDNN (the library yardstick conv runs "
-          "in full fp32)", flush=True)
-    t0 = time.perf_counter()
-    _build.build_all(verbose=True)
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a, "
-          f"{len(_build.SIGNATURES)} kernels in parallel)", flush=True)
 
     params = random_gaussians(np.random.default_rng(0), n=n_gauss,
                               capacity=n_gauss, sh_degree=3, spread=1.5,
@@ -223,10 +310,13 @@ def run(dev, n_gauss: int, height: int, width: int) -> None:
         got, walked0 = composite_tiles(rec0, st0, cn0, ntx, nty)
         want, _ = composite_tiles_plain(rec0, st0, cn0, ntx, nty)
         torch.cuda.synchronize()
-        ok, e = knife_edge_ok(got, want)
+        ok, e = knife_edge_ok(got[:, :IMG_ROWS], want[:, :IMG_ROWS])
+        flips = float((got[:, 6] != want[:, 6]).float().mean())
         print(f"kernel A vs plain (1 view, {rec0.shape[0]} records): "
-              f"max|d| {e:.3g}", flush=True)
+              f"max|d| {e:.3g}; exit positions differ at {flips:.2e} of "
+              f"pixels", flush=True)
         check(ok, "kernel A disagrees with composite_tiles_plain")
+        check(flips <= 0.01, "kernel A's exit state disagrees with plain")
         check(bool((walked0 <= cn0).all()), "kernel A walked past a segment")
 
         planes = torch.rand(15, height, width, device=dev,
@@ -239,18 +329,20 @@ def run(dev, n_gauss: int, height: int, width: int) -> None:
               flush=True)
         check(err["B"] <= 1e-6, "kernel B disagrees with blur_plain")
 
-        # ---- 3. main path at full width ----------------------------------
+        # ---- 3. serving path at full width -------------------------------
         composite_tiles.launches = 0
         blur_same.launches = 0
+        composite_tiles_bwd.launches = 0
         out = batch_render(params, cams, bg, config=cfg)
         metrics = [pair_metrics(out.render[v], cams.gt_image[v])
                    for v in range(VIEWS)]
         torch.cuda.synchronize()
-        launches = {"A": composite_tiles.launches, "B": blur_same.launches}
-        print(f"main path launches: {launches}", flush=True)
-        check(launches == {"A": 1, "B": VIEWS},
-              f"main path launches {launches}: expected A once per "
-              f"batch_render and B once per pair")
+        launches = {"A": composite_tiles.launches, "B": blur_same.launches,
+                    "C": composite_tiles_bwd.launches}
+        print(f"serving path launches: {launches}", flush=True)
+        check(launches == {"A": 1, "B": VIEWS, "C": 0},
+              f"serving path launches {launches}: expected A once per "
+              f"batch_render, B once per pair, C never")
         check(int(out.overflow) == 0, f"overflow (n_duplicates "
               f"{int(out.n_duplicates)})")
         check(out.render.shape == (VIEWS, 3, height, width), "render shape")
@@ -261,7 +353,7 @@ def run(dev, n_gauss: int, height: int, width: int) -> None:
         check(all(np.isfinite(ssims + psnrs)) and all(-1 <= s <= 1
                                                       for s in ssims),
               "metrics finite")
-        print(f"main path: n_duplicates {int(out.n_duplicates)}, "
+        print(f"serving path: n_duplicates {int(out.n_duplicates)}, "
               f"max_tile_load {int(out.max_tile_load)}, visible/view "
               f"{[int(v.sum()) for v in out.visibility]}, mean "
               f"{float(out.render.mean()):.5f}, SSIM {ssims}, PSNR {psnrs}",
@@ -274,14 +366,14 @@ def run(dev, n_gauss: int, height: int, width: int) -> None:
         print(f"batched views 0-{VIEWS - 1} == single-view renders: bitwise",
               flush=True)
 
-        # kernel A against its plain version on the main path's own inputs:
-        # the 4-view stack, where tile rows wrap modulo view_rows
+        # kernel A against its plain version on the path's own inputs: the
+        # 4-view stack, where tile rows wrap modulo view_rows
         splats, _, _ = stack_views(params, cams, config=cfg)
         rec, st, cn, _ = tile_records(splats, ntx, VIEWS * nty, cfg, nty)
         got, walked = composite_tiles(rec, st, cn, ntx, nty)
         want, _ = composite_tiles_plain(rec, st, cn, ntx, nty)
         torch.cuda.synchronize()
-        ok, err["A"] = knife_edge_ok(got, want)
+        ok, err["A"] = knife_edge_ok(got[:, :IMG_ROWS], want[:, :IMG_ROWS])
         print(f"kernel A vs plain ({VIEWS}-view stack, {cn.shape[0]} tiles, "
               f"{rec.shape[0]} records): max|d| {err['A']:.3g}", flush=True)
         check(ok, "kernel A disagrees with composite_tiles_plain on the stack")
@@ -297,7 +389,7 @@ def run(dev, n_gauss: int, height: int, width: int) -> None:
               flush=True)
         check(ok, "kernel path disagrees with rasterize_ref")
 
-        # ---- 4. timings --------------------------------------------------
+        # ---- 4. serving timings ------------------------------------------
         br_times = cuda_times(
             lambda: batch_render(params, cams, bg, config=cfg), 5)
         br_ms = statistics.median(br_times)
@@ -327,8 +419,8 @@ def run(dev, n_gauss: int, height: int, width: int) -> None:
         work = pair_work(rec, st, cn, ntx, nty)
         a_fp32, a_mufu = (sum(n * c[i] for n, c in zip(
             work, (A_EVAL, A_EXP, A_CONTRIB, A_ACC))) for i in (0, 1))
-        # records walked, starts + counts in, rgb/invdepth/t_final + walked out
-        a_bytes = n_walked * 40 + ntiles * (5 * 256 * 4 + 12)
+        # records walked, starts + counts in, 7 output rows + walked out
+        a_bytes = n_walked * 40 + ntiles * (OUT_ROWS * 256 * 4 + 12)
         a_times = {"fp32 issue": a_fp32 / FP32_RATE,
                    "MUFU issue": a_mufu / MUFU_RATE,
                    "bytes": a_bytes / PEAK_BYTES}
@@ -376,11 +468,13 @@ def run(dev, n_gauss: int, height: int, width: int) -> None:
               f"depthwise (TF32 off) {b_lib_ms:.4f} ms, max|d| {b_lib_err:.3g}",
               flush=True)
 
-    kernels = [
+    return [
         {"name": "composite_fwd", "route": "cuda",
          "source": "gslm_tpu_torch/csrc/composite_fwd.cu",
          "replaces": "gslm_tpu/ops/rasterize_pallas.py:440",
-         "launches": launches["A"], "max_abs_err": err["A"],
+         "launches": launches["A"],
+         "launches_by_path": {"serve": launches["A"]},
+         "max_abs_err": err["A"],
          "ms": stage["kernel A"], "plain_ms": a_plain_ms,
          "bound_ms": a_bound,
          "bound_by": "bytes" if a_bound == a_times["bytes"] * 1e3
@@ -388,14 +482,253 @@ def run(dev, n_gauss: int, height: int, width: int) -> None:
         {"name": "blur_same", "route": "cuda",
          "source": "gslm_tpu_torch/csrc/blur.cu",
          "replaces": "gslm_tpu/ops/blur_pallas.py:87",
-         "launches": launches["B"], "max_abs_err": err["B"],
+         "launches": launches["B"],
+         "launches_by_path": {"serve": launches["B"]},
+         "max_abs_err": err["B"],
          "ms": b_ms, "plain_ms": b_plain_ms, "bound_ms": b_bound,
          "bound_by": "bytes" if b_bytes / PEAK_BYTES >= b_ops / FP32_RATE
          else "operations", "library_ms": b_lib_ms},
     ]
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+
+
+def train_phase(dev, n_gauss: int, height: int, width: int, tag: str,
+                kernels: list[dict]) -> dict:
+    """Phase 5. Adds the training launches to the entries of A and B in
+    ``kernels`` and returns kernel C's entry."""
+    import torch
+
+    from gslm_tpu_torch.config import OptimizationParams
+    from gslm_tpu_torch.models.gaussians import PARAM_GROUPS, GaussianAux
+    from gslm_tpu_torch.ops import rasterize_cuda as rc
+    from gslm_tpu_torch.ops.blur_cuda import blur, blur_plain, blur_same
+    from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig
+    from gslm_tpu_torch.ops.ssim import gaussian_taps
+    from gslm_tpu_torch.optim import (adam_step, group_learning_rates,
+                                      init_adam)
+    from gslm_tpu_torch.renderer import batch_render, stack_views
+    from gslm_tpu_torch.solver.residuals import scalar_training_loss
+    from gslm_tpu_torch.train import loss_and_grads, train_step
+    from gslm_tpu_torch.utils.synthetic import (random_gaussians,
+                                                ring_camera_batch)
+
+    params = random_gaussians(np.random.default_rng(0), n=n_gauss,
+                              capacity=n_gauss, sh_degree=3,
+                              num_images=EXPOSURES, spread=1.5,
+                              scale_range=(-5.5, -3.5), device=dev)
+    cam = ring_camera_batch(1, height, width, device=dev)
+    rcfg = RasterConfig(**TRAIN_CAPS)
+    opt = OptimizationParams()
+    bg = torch.zeros(3, device=dev)
+    lg_kw = dict(rcfg=rcfg, opt=opt, active_sh_degree=3, use_exp=False)
+    ts_kw = dict(lg_kw, sparse_adam=False, update_stats=True)
+    taps = gaussian_taps()
+
+    # reachable target: the scene with features_dc shifted by a seeded offset
+    shift = torch.tensor(np.random.default_rng(1).normal(
+        0, 0.2, (n_gauss, 1, 3)).astype(np.float32), device=dev)
+    with torch.no_grad():
+        dc = params.features_dc.detach().clone()
+        params.features_dc.add_(shift)
+        target = batch_render(params, cam, bg, config=rcfg)
+        params.features_dc.copy_(dc)
+        radii = batch_render(params, cam, bg, config=rcfg).radii.amax(dim=0)
+    check(int(target.overflow) == 0, "target render overflows")
+    cam = cam.replace(gt_image=target.render)
+    n_visible = int((radii > 0).sum())
+    aux = GaussianAux.zeros(n_gauss, device=dev)
+    state = init_adam(params)
+
+    # ---- one train_step on the main path, kernel C's inputs captured ----
+    real_bwd = rc.composite_tiles_bwd
+    real_backward = rc.Composite.backward
+    captured = []
+
+    def capturing_backward(ctx, gtiles, gwalked):
+        records, starts, counts, tiles = ctx.saved_tensors
+        ntx, view_rows, depth_grad = ctx.geometry
+        captured.append((records, starts, counts, ntx, view_rows,
+                         gtiles[:, :rc.IMG_ROWS].clone(),
+                         tiles[:, rc.IMG_ROWS:], depth_grad))
+        return real_backward(ctx, gtiles, gwalked)
+
+    rc.Composite.backward = staticmethod(capturing_backward)
+    try:
+        rc.composite_tiles.launches = 0
+        blur_same.launches = 0
+        blur_same.vjp_launches = 0
+        real_bwd.launches = 0
+        params, aux, state, m = train_step(params, aux, state, cam, bg, 100,
+                                           1.0, 0.0, **ts_kw)
+        torch.cuda.synchronize()
+        launches = {"A": rc.composite_tiles.launches, "B": blur_same.launches,
+                    "C": real_bwd.launches}
+        b_vjp = blur_same.vjp_launches
+    finally:
+        rc.Composite.backward = staticmethod(real_backward)
+    print(f"train_step launches: {launches} (B's VJP {b_vjp})", flush=True)
+    check(launches == {"A": 1, "B": 2, "C": 1} and b_vjp == 1,
+          f"train_step launches {launches}, B's VJP {b_vjp}: expected A "
+          f"once, B twice (one VJP), C once")
+    check(len(captured) == 1, "kernel C's inputs not captured once")
+    losses = [float(m["loss"])]
+    check(int(m["overflow"]) == 0, "train_step overflows")
+    denom_sum = float(aux.denom.sum())
+    print(f"train_step 1: loss {losses[0]:.6f}, psnr {float(m['psnr']):.4f}, "
+          f"max_tile_load {int(m['max_tile_load'])}; denom sum {denom_sum:.0f}"
+          f", visible Gaussians {n_visible}", flush=True)
+    check(denom_sum == n_visible, "denom did not rise by the visible count")
+    check(all(bool(torch.isfinite(getattr(params, g)).all())
+              for g in PARAM_GROUPS), "non-finite parameters after the step")
+    check(all(bool(torch.isfinite(getattr(aux, f)).all())
+              for f in ("max_radii2d", "xyz_gradient_accum", "denom")),
+          "non-finite densification statistics")
+    check(float(aux.xyz_gradient_accum.max()) > 0, "no screen gradient")
+
+    # ---- kernel C against its plain version, and against itself ---------
+    args = captured[0]
+    rec, st, cn, ntx, vrows, gtiles, xstate, depth_grad = args
+    got = real_bwd(*args)
+    again = real_bwd(*args)
+    want = rc.composite_tiles_bwd_plain(rec, st, cn, ntx, vrows, gtiles,
+                                        depth_grad)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), "kernel C is not bitwise repeatable")
+    check(bool(torch.isfinite(got).all()), "kernel C gave non-finite values")
+    c_err, c_rel = 0.0, []
+    for f in range(rc.NF):
+        scale = float(want[:, f].abs().max()) + 1e-30
+        ok, e = knife_edge_ok(got[:, f], want[:, f], scale)
+        check(ok, f"kernel C disagrees with its plain version, field {f}")
+        c_err = max(c_err, e)
+        c_rel.append(e / scale)
+    print(f"kernel C vs plain ({rec.shape[0]} records, {cn.shape[0]} tiles): "
+          f"max|d| {c_err:.3g}; max|d|/max|plain| per field "
+          f"{[float(f'{r:.3g}') for r in c_rel]}; two runs bitwise equal",
+          flush=True)
+
+    gen = torch.Generator(dev).manual_seed(3)
+    x = torch.rand(1, 15, height, width, device=dev, generator=gen,
+                   requires_grad=True)
+    g = torch.randn(1, 15, height, width, device=dev, generator=gen)
+    (gx,) = torch.autograd.grad(blur(x, taps), x, g)
+    vjp_err = float((gx - blur_plain(g, taps[::-1])).abs().max())
+    print(f"blur VJP vs plain reversed-tap blur {tuple(g.shape)}: max|d| "
+          f"{vjp_err:.3g}", flush=True)
+    check(vjp_err <= 1e-6, "the blur VJP disagrees with blur_plain")
+
+    # ---- gradients through the kernels against the plain compositor -----
+    _, _, _, gk, mk = loss_and_grads(params, cam, bg, 0.0, **lg_kw)
+    real_fwd = rc.composite_tiles
+    rc.composite_tiles = (lambda r, s, c, nx, vr:
+                          rc.composite_tiles_plain(r, s, c, nx, vr))
+    rc.composite_tiles_bwd = (lambda r, s, c, nx, vr, gt, _, dg:
+                              rc.composite_tiles_bwd_plain(r, s, c, nx, vr,
+                                                           gt, dg))
+    try:
+        _, _, _, gp, mp = loss_and_grads(params, cam, bg, 0.0, **lg_kw)
+    finally:
+        rc.composite_tiles, rc.composite_tiles_bwd = real_fwd, real_bwd
+    grad_rel = {}
+    for name, a, b in [(k, gk[k], gp[k]) for k in PARAM_GROUPS] + [
+            ("mean2d_offset", mk, mp)]:
+        check(bool(torch.isfinite(a).all()), f"non-finite gradient {name}")
+        scale = float(b.abs().max()) + 1e-30
+        ok, e = knife_edge_ok(a, b, scale)
+        check(ok, f"kernel-path gradient of {name} disagrees with the plain "
+                  f"path")
+        grad_rel[name] = float(f"{e / scale:.3g}")
+    print(f"gradients, kernel path vs plain compositor: max|d|/max|plain| "
+          f"{grad_rel}", flush=True)
+
+    # ---- the loss over 10 steps ------------------------------------------
+    for step in range(101, 100 + TRAIN_STEPS):
+        params, aux, state, m = train_step(params, aux, state, cam, bg, step,
+                                           1.0, 0.0, **ts_kw)
+        losses.append(float(m["loss"]))
+    print(f"loss over {TRAIN_STEPS} steps: {[round(v, 6) for v in losses]}",
+          flush=True)
+    check(losses[-1] < losses[0], "the loss did not fall over 10 steps")
+
+    # ---- 5b. training timings --------------------------------------------
+    step_times = cuda_times(lambda: train_step(
+        params, aux, state, cam, bg, 200, 1.0, 0.0, **ts_kw), 5)
+    step_ms = statistics.median(step_times)
+
+    def forward():
+        m2d = torch.zeros(n_gauss, 2, device=dev, requires_grad=True)
+        return scalar_training_loss(params, cam, bg, config=rcfg,
+                                    lambda_dssim=opt.lambda_dssim,
+                                    active_sh_degree=3,
+                                    mean2d_offset=m2d)[0]
+
+    g_planes = torch.randn(1, 15, height, width, device=dev, generator=gen)
+    lrs = group_learning_rates(opt, 200, 1.0)
+    m2d = torch.zeros(n_gauss, 2, device=dev, requires_grad=True)
+    splats = stack_views(params, cam, config=rcfg, mean2d_offset=m2d)[0]
+    t = {"preprocess (autograd on)": cuda_ms(lambda: stack_views(
+             params, cam, config=rcfg, mean2d_offset=m2d), 5),
+         "front end + record gather (autograd on)": cuda_ms(
+             lambda: rc.tile_records(splats, ntx, vrows, rcfg, vrows), 5),
+         "forward+loss": cuda_ms(forward, 5),
+         "forward+loss+backward": cuda_ms(
+             lambda: loss_and_grads(params, cam, bg, 0.0, **lg_kw), 5),
+         "kernel C": cuda_ms(lambda: real_bwd(*args), 10),
+         "blur VJP (kernel B, reversed taps)": cuda_ms(
+             lambda: blur_same(g_planes, taps[::-1]), 10),
+         "kernel A (training view)": cuda_ms(
+             lambda: real_fwd(rec, st, cn, ntx, vrows), 10),
+         "Adam": cuda_ms(lambda: adam_step(params, gk, state, lrs), 5)}
+    t["backward"] = t["forward+loss+backward"] - t["forward+loss"]
+    n_kern, busy_ms, wall_ms = device_busy(lambda: train_step(
+        params, aux, state, cam, bg, 201, 1.0, 0.0, **ts_kw))
+    c_plain_ms = cuda_ms(lambda: rc.composite_tiles_bwd_plain(
+        rec, st, cn, ntx, vrows, gtiles, depth_grad), 2)
+
+    work, c_records = bwd_pair_work(rec, st, cn, ntx, vrows, xstate)
+    walked_pairs, evaluated, past_power, contrib = work
+    c_fp32, c_mufu = (evaluated * C_EVAL[i] + past_power * C_EXP[i]
+                      + contrib * (C_CONTRIB[i] + C_SUM[i]) for i in (0, 1))
+    # records walked in, drec out (every row), gtiles + exit state + the
+    # segment table per tile
+    ntiles = cn.shape[0]
+    c_bytes = (c_records * 40 + rec.shape[0] * 40
+               + ntiles * ((rc.IMG_ROWS + 2) * 256 * 4 + 8))
+    c_times = {"fp32 issue": c_fp32 / FP32_RATE,
+               "MUFU issue": c_mufu / MUFU_RATE,
+               "bytes": c_bytes / PEAK_BYTES}
+    c_bound = max(c_times.values()) * 1e3
+    print(f"{tag} train_step 1x{width}x{height}: {step_ms:.3f} ms median of "
+          f"5 (runs {[round(v, 3) for v in step_times]})", flush=True)
+    print(f"{tag} train_step stages (ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in t.items()), flush=True)
+    print(f"{tag} train_step profiled once: {n_kern} CUDA kernels, device "
+          f"busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
+          f"({busy_ms / wall_ms:.3f}; the profiler adds host time)",
+          flush=True)
+    print(f"{tag} kernel C pairs [walked, evaluated, past power gate, "
+          f"contributing] {work}, {c_records} of {rec.shape[0]} records "
+          f"walked: {c_fp32} fp32 + {c_mufu} MUFU lane instructions, "
+          f"{c_bytes} B; bound ms "
+          + ", ".join(f"{k} {v * 1e3:.4f}" for k, v in c_times.items())
+          + f"; kernel C {t['kernel C']:.3f} ms, plain {c_plain_ms:.3f} ms",
+          flush=True)
+
+    for entry, key in zip(kernels, ("A", "B")):
+        entry["launches_by_path"]["train_step"] = launches[key]
+        entry["launches"] += launches[key]
+    kernels[0]["ms_train_view"] = t["kernel A (training view)"]
+    kernels[1]["vjp_launches"] = b_vjp
+    kernels[1]["vjp_ms"] = t["blur VJP (kernel B, reversed taps)"]
+    kernels[1]["vjp_max_abs_err"] = vjp_err
+    return {"name": "composite_bwd", "route": "cuda",
+            "source": "gslm_tpu_torch/csrc/composite_bwd.cu",
+            "replaces": "gslm_tpu/ops/rasterize_pallas.py:665",
+            "launches": launches["C"],
+            "launches_by_path": {"serve": 0, "train_step": launches["C"]},
+            "max_abs_err": c_err, "ms": t["kernel C"],
+            "plain_ms": c_plain_ms, "bound_ms": c_bound,
+            "bound_by": "bytes" if c_bound == c_times["bytes"] * 1e3
+            else "operations", "library_ms": None}
 
 
 if __name__ == "__main__":

@@ -6,8 +6,9 @@ headers, so a build takes seconds. The library name carries a hash of the
 sources and flags, so an edited kernel is rebuilt and a stale one is never
 loaded. ``build_all`` starts one nvcc per source, all at once.
 
-No ``--use_fast_math``: the compositor's parity with the plain version
-needs IEEE ``expf``/``log1pf``.
+No ``--use_fast_math``: the compositors' parity with their plain versions
+needs IEEE ``expf``/``log1pf``. Every ``csrc/*.cuh`` header enters every
+library's hash.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "composite_fwd": {"composite_fwd": [_VP, _VP, _VP, _I, _I, _I, _VP, _VP,
                                         _VP]},
+    "composite_bwd": {"composite_bwd": [_VP, _VP, _VP, _I, _I, _I, _VP, _VP,
+                                        _I, _VP, _VP]},
     "blur": {"blur_same": [_VP, _VP, _I, _I, _I, _VP, _I, _VP]},
 }
 

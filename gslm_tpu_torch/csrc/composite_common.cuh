@@ -1,0 +1,37 @@
+// Shared by kernel A (composite_fwd.cu) and kernel C (composite_bwd.cu):
+// the record layout, the compositing constants and the per-pair alpha
+// arithmetic. Both kernels evaluate a (record, pixel) pair through the same
+// inline functions, so the backward's gates (power <= 0, alpha >= 1/255)
+// see the very bits the forward saw.
+#pragma once
+
+namespace gslm {
+
+constexpr int TILE = 16;
+constexpr int PIX = TILE * TILE;  // threads per block, one per pixel
+constexpr int NF = 10;            // float32 fields per record:
+                                  // mean2d 2, conic 3, opacity, rgb 3, invdepth
+constexpr int IMG_ROWS = 5;       // r, g, b, invdepth, t_final
+constexpr int OUT_ROWS = 7;       // + exit log-transmittance, exit position
+constexpr float ALPHA_MIN = 1.0f / 255.0f;
+constexpr float ALPHA_MAX = 0.99f;
+constexpr float T_EPS = 1e-4f;
+
+// Pixel coordinates of thread ``lane`` in tile ``t`` (no +0.5; tile rows
+// wrap modulo view_rows, so stacked views composite as single views).
+__device__ __forceinline__ void tile_pixel(int t, int lane, int ntx,
+                                           int view_rows, float& px,
+                                           float& py) {
+  px = (float)((t % ntx) * TILE + lane % TILE);
+  py = (float)(((t / ntx) % view_rows) * TILE + lane / TILE);
+}
+
+// power = -0.5 (c0 dx^2 + c2 dy^2) - c1 dx dy of record r at (px, py).
+__device__ __forceinline__ float splat_power(const float* r, float px,
+                                             float py, float& dx, float& dy) {
+  dx = r[0] - px;
+  dy = r[1] - py;
+  return -0.5f * (r[2] * dx * dx + r[4] * dy * dy) - r[3] * dx * dy;
+}
+
+}  // namespace gslm

@@ -15,8 +15,12 @@
 // Transmittance is a running log sum (lsum += log1pf(-a); T = expf(lsum)),
 // the Pallas kernel's formulation.
 //
-// Outputs: per tile (5, 256) float32 rows [r, g, b, invdepth, t_final] and
-// the number of records the block walked (what bounds its work).
+// Outputs: per tile (7, 256) float32 rows [r, g, b, invdepth, t_final,
+// exit lsum, exit position] and the number of records the block walked
+// (what bounds its work). Rows 5-6 are the exit state kernel C starts its
+// reverse walk from (the Pallas forward saves the same in its spare rows
+// 5-6): the log-transmittance sum at the exit, and the in-segment index of
+// the first record that fails T_after >= 1e-4, or count when none fails.
 //
 // Bound on this card: fp32 and SFU issue over the (record, pixel) pairs
 // walked; the records read are 40 B per record per tile, tiny beside that.
@@ -31,15 +35,11 @@
 // so the walk ends early on deep segments as the CUDA reference's does.
 #include <cuda_runtime.h>
 
+#include "composite_common.cuh"
+
 namespace {
 
-constexpr int TILE = 16;
-constexpr int PIX = TILE * TILE;  // threads per block, one per pixel
-constexpr int NF = 10;            // float32 fields per record
-constexpr int OUT_ROWS = 5;       // r, g, b, invdepth, t_final
-constexpr float ALPHA_MIN = 1.0f / 255.0f;
-constexpr float ALPHA_MAX = 0.99f;
-constexpr float T_EPS = 1e-4f;
+using namespace gslm;
 
 __global__ void __launch_bounds__(PIX)
 composite_fwd_kernel(const float* __restrict__ records,
@@ -49,14 +49,15 @@ composite_fwd_kernel(const float* __restrict__ records,
   __shared__ float rec[PIX * NF];
   const int t = blockIdx.x;
   const int lane = threadIdx.x;
-  const float px = (float)((t % ntx) * TILE + lane % TILE);
-  const float py = (float)(((t / ntx) % view_rows) * TILE + lane / TILE);
+  float px, py;
+  tile_pixel(t, lane, ntx, view_rows, px, py);
   const int start = starts[t];
   const int count = counts[t];
 
   float lsum = 0.f, T = 1.f, t_final = 1.f;
   float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f, acc_d = 0.f;
   bool done = false;
+  int exit_pos = count;
   int n_walked = 0;
 
   for (int base = 0; base < count; base += PIX) {
@@ -69,10 +70,8 @@ composite_fwd_kernel(const float* __restrict__ records,
     n_walked += n;
     for (int i = 0; i < n && !done; ++i) {
       const float* r = rec + i * NF;
-      const float dx = r[0] - px;
-      const float dy = r[1] - py;
-      const float power =
-          -0.5f * (r[2] * dx * dx + r[4] * dy * dy) - r[3] * dx * dy;
+      float dx, dy;
+      const float power = splat_power(r, px, py, dx, dy);
       if (power > 0.f) continue;
       const float a = fminf(r[5] * expf(power), ALPHA_MAX);
       if (a < ALPHA_MIN) continue;
@@ -80,6 +79,7 @@ composite_fwd_kernel(const float* __restrict__ records,
       const float t_after = expf(l_after);
       if (t_after < T_EPS) {  // T_before >= 1e-4 holds here by induction
         t_final = T;
+        exit_pos = base + i;
         done = true;
         break;
       }
@@ -100,12 +100,14 @@ composite_fwd_kernel(const float* __restrict__ records,
   o[2 * PIX] = acc_b;
   o[3 * PIX] = acc_d;
   o[4 * PIX] = t_final;
+  o[5 * PIX] = lsum;
+  o[6 * PIX] = (float)exit_pos;  // exact: segments hold far fewer than 2^24
   if (lane == 0) walked[t] = n_walked;
 }
 
 }  // namespace
 
-// records (L, 10) f32, starts/counts (ntiles,) i32 → out (ntiles, 5, 256)
+// records (L, 10) f32, starts/counts (ntiles,) i32 → out (ntiles, 7, 256)
 // f32, walked (ntiles,) i32. Launches on ``stream``; returns cudaGetLastError.
 extern "C" int composite_fwd(const float* records, const int* starts,
                              const int* counts, int ntiles, int ntx,

@@ -35,6 +35,10 @@ class CameraMeta(Struct):
     height: int
     image_name: str
     image: np.ndarray | None = None        # (3, H, W) float32 in [0,1]
+    alpha_mask: np.ndarray | None = None   # (1, H, W) float32
+    invdepthmap: np.ndarray | None = None  # (1, H, W) float32
+    depth_reliable: bool = False
+    depth_mask: np.ndarray | None = None
     exposure_idx: int = 0
     trans: np.ndarray = dataclasses.field(
         default_factory=lambda: np.zeros(3))
@@ -84,12 +88,24 @@ class CameraBatch(Struct):
     heights: torch.Tensor       # (B,) true extents
     widths: torch.Tensor        # (B,)
     gt_image: torch.Tensor      # (B, 3, H, W) padded ground truth
+    alpha_mask: torch.Tensor    # (B, 1, H, W); all ones when unused
+    invdepth_gt: torch.Tensor   # (B, 1, H, W) monocular inverse depth (0 if none)
+    depth_mask: torch.Tensor    # (B, 1, H, W) depth validity (0 if none)
     height: int
     width: int
 
     @property
     def batch_size(self) -> int:
         return self.world_view.shape[0]
+
+    def pixel_valid(self) -> torch.Tensor:
+        """(B, 1, H, W) float mask of the pixels inside each view's extent."""
+        dev = self.heights.device
+        ys = torch.arange(self.height, device=dev)[None, :, None]
+        xs = torch.arange(self.width, device=dev)[None, None, :]
+        valid = ((ys < self.heights[:, None, None])
+                 & (xs < self.widths[:, None, None]))
+        return valid[:, None].to(torch.float32)
 
     def view(self, i: int) -> Camera:
         return Camera(world_view=self.world_view[i], full_proj=self.full_proj[i],
@@ -142,9 +158,18 @@ def batch_from_metas(metas: list[CameraMeta],
         max_h = max(max_h, pad_hw[0])
         max_w = max(max_w, pad_hw[1])
     gt = np.zeros((b, 3, max_h, max_w), dtype=np.float32)
+    am = np.ones((b, 1, max_h, max_w), dtype=np.float32)
+    dg = np.zeros((b, 1, max_h, max_w), dtype=np.float32)
+    dm = np.zeros((b, 1, max_h, max_w), dtype=np.float32)
     for i, m in enumerate(metas):
         if m.image is not None:
             gt[i, :, :m.height, :m.width] = m.image
+        if m.alpha_mask is not None:
+            am[i, :, :m.height, :m.width] = m.alpha_mask
+        if m.invdepthmap is not None and m.depth_reliable:
+            dg[i, :, :m.height, :m.width] = m.invdepthmap
+            if m.depth_mask is not None:
+                dm[i, :, :m.height, :m.width] = m.depth_mask
 
     def t(x, dtype=None):
         return torch.tensor(np.asarray(x, dtype), device=dev)
@@ -158,4 +183,5 @@ def batch_from_metas(metas: list[CameraMeta],
         exposure_idx=t([m.exposure_idx for m in metas], np.int64),
         heights=t([m.height for m in metas], np.int64),
         widths=t([m.width for m in metas], np.int64),
-        gt_image=t(gt), height=max_h, width=max_w)
+        gt_image=t(gt), alpha_mask=t(am), invdepth_gt=t(dg),
+        depth_mask=t(dm), height=max_h, width=max_w)

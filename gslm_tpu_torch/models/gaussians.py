@@ -4,15 +4,19 @@ The seven parameter groups are ``nn.Parameter``s under the JAX field names
 and keep the raw (pre-activation) values: exp on scaling, sigmoid on
 opacity, L2-normalize on the rotation quaternion. The Gaussian count is
 padded to a fixed capacity; the ``alive`` buffer (``GaussianAux.alive`` in
-the JAX package) marks the live slots."""
+the JAX package) marks the live slots. ``GaussianAux`` holds the training
+statistics that densification reads."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 from torch import nn
 
 from gslm_tpu_torch.device import resolve_device
+from gslm_tpu_torch.struct import Struct
 
 # Raw values of dead (padding) slots: transparent, tiny, at the origin.
 DEAD_OPACITY_LOGIT = -12.0
@@ -55,6 +59,27 @@ class GaussianParams(nn.Module):
 
     def groups(self) -> dict[str, torch.Tensor]:
         return {g: getattr(self, g).detach() for g in PARAM_GROUPS}
+
+
+@dataclasses.dataclass
+class GaussianAux(Struct):
+    """Per-Gaussian training statistics (the JAX ``GaussianAux`` without
+    ``alive``, which lives on ``GaussianParams``): all (C,) float32."""
+
+    max_radii2d: torch.Tensor
+    xyz_gradient_accum: torch.Tensor
+    denom: torch.Tensor
+
+    @classmethod
+    def zeros(cls, capacity: int, device=None) -> "GaussianAux":
+        dev = resolve_device(device)
+        return cls(*(torch.zeros(capacity, device=dev) for _ in range(3)))
+
+
+def zeros_like_params(params: GaussianParams) -> dict[str, torch.Tensor]:
+    """Zeros shaped like every parameter group, keyed by group name (the
+    port's form of a parameter pytree: gradients, Adam moments)."""
+    return {g: torch.zeros_like(getattr(params, g)) for g in PARAM_GROUPS}
 
 
 def init_aux(capacity: int, num_points: int | None = None,

@@ -1,6 +1,12 @@
 """Separable zero-padded SAME blur: kernel B (csrc/blur.cu) and its plain
-version. Counterpart of ``blur_same`` (gslm_tpu/ops/blur_pallas.py),
-forward only; the reversed-tap VJP comes with the training slice."""
+version. Counterpart of ``blur_same`` (gslm_tpu/ops/blur_pallas.py).
+
+The blur is linear, so its VJP is the same blur with the taps reversed
+(the JAX package installs that through ``linear_call``): ``blur`` is the
+differentiable entry, a ``torch.autograd.Function`` whose backward is
+``blur_same`` again, so the VJP launches kernel B on the card and takes the
+plain version on the CPU; neither differentiates ``blur_plain`` by
+autograd."""
 
 from __future__ import annotations
 
@@ -66,4 +72,26 @@ def blur_same(img: torch.Tensor, taps) -> torch.Tensor:
     return y.reshape(shape)
 
 
-blur_same.launches = 0   # kernel B launches in this process
+blur_same.launches = 0       # kernel B launches in this process
+blur_same.vjp_launches = 0   # of which for ``blur``'s backward
+
+
+class Blur(torch.autograd.Function):
+    """``blur_same`` with its reversed-tap VJP."""
+
+    @staticmethod
+    def forward(ctx, img, taps):
+        ctx.taps = _taps(taps)
+        return blur_same(img, ctx.taps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = blur_same(grad, ctx.taps[::-1])
+        if grad.is_cuda:
+            blur_same.vjp_launches += 1
+        return out, None
+
+
+def blur(img: torch.Tensor, taps) -> torch.Tensor:
+    """Differentiable ``blur_same`` (kernel B forward and backward)."""
+    return Blur.apply(img, taps)

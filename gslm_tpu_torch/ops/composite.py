@@ -3,8 +3,9 @@
 With splats sorted front to back and alphas gated at 1/255, the running
 transmittance is one log-space cumsum. A splat contributes a_i·T_i iff
 T_i(1-a_i) >= 1e-4; the background uses the transmittance frozen at the
-first failure. The CUDA compositor (csrc/composite_fwd.cu) walks the same
-rule record by record; this closed form is its plain version."""
+first failure. The CUDA compositors (csrc/composite_fwd.cu and its
+backward, csrc/composite_bwd.cu) walk the same rule record by record; this
+closed form, and PyTorch's autograd of it, are their plain versions."""
 
 from __future__ import annotations
 
@@ -39,6 +40,28 @@ def composite_weights(alpha: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     t_frozen = torch.amax(torch.where(fail, t_before, 0.0), dim=0)
     t_final = torch.where(any_fail, t_frozen, t_after[-1])
     return weights, t_final
+
+
+def exit_state(alpha: torch.Tensor, count: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The per-pixel state the forward compositor saves for its backward,
+    in closed form: alpha (N, ...) front to back, count (...) records in
+    each segment → (log-transmittance sum at the exit, exit position), the
+    exit being the first contributing record with T_after < 1e-4 (the sum
+    stops before it) or ``count`` when none fails. Not differentiable."""
+    alpha = alpha.detach()
+    contrib = alpha >= ALPHA_MIN
+    log_t_after = torch.cumsum(torch.log1p(-torch.where(contrib, alpha, 0.0)),
+                               dim=0)
+    fail = contrib & (torch.exp(log_t_after) < T_EPS)
+    any_fail = torch.any(fail, dim=0)
+    first = torch.argmax(fail.to(torch.uint8), dim=0)   # first True
+    before = torch.gather(log_t_after, 0,
+                          torch.clamp(first - 1, min=0)[None])[0]
+    lsum = torch.where(any_fail, torch.where(first > 0, before, 0.0),
+                       log_t_after[-1])
+    pos = torch.where(any_fail, first, count)
+    return lsum, pos.to(alpha.dtype)
 
 
 def alpha_from_conic(mean2d, conic, opacity, px, py, gate):

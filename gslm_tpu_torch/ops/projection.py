@@ -111,8 +111,19 @@ def compute_cov3d(scaling, rotation, scaling_modifier=1.0):
 def preprocess(params: GaussianParams, camera: Camera, *,
                active_sh_degree: int, antialiasing: bool = False,
                scaling_modifier: float = 1.0,
-               alive: torch.Tensor | None = None) -> Splats2D:
-    """Project all Gaussians into one camera."""
+               alive: torch.Tensor | None = None,
+               mean2d_offset: torch.Tensor | None = None) -> Splats2D:
+    """Project all Gaussians into one camera.
+
+    ``mean2d_offset``: optional (P, 2) zeros added to the projected mean in
+    NDC-half units, scaled by (0.5 W, 0.5 H): the gradient carrier of the
+    densification statistics (its cotangent is dL/dmean2d in the CUDA
+    reference's convention).
+
+    Differentiable in every parameter group. The rows of culled, dead and
+    off-screen Gaussians are sanitized below without an infinite
+    derivative on either side of a ``where``, so their gradients are finite
+    and exactly zero, as in the JAX package."""
     xyz = params.xyz
     W, H = camera.width, camera.height
     fx = W / (2.0 * camera.tanfovx)
@@ -134,6 +145,8 @@ def preprocess(params: GaussianParams, camera: Camera, *,
 
     mean2d = torch.stack([((p_x + 1.0) * W - 1.0) * 0.5,
                           ((p_y + 1.0) * H - 1.0) * 0.5], dim=-1)
+    if mean2d_offset is not None:
+        mean2d = mean2d + mean2d_offset * mean2d.new_tensor([0.5 * W, 0.5 * H])
 
     # --- EWA 2D covariance ---
     cov3d = compute_cov3d(params.get_scaling(), params.rotation,

@@ -40,8 +40,11 @@ class RasterConfig(Struct):
     ``impl``: "auto"/"cuda" (CUDA compositor, plain version on CPU tensors)
     or "ref" (dense golden rasterizer); "tiled", "pallas" and "pallas_jvp"
     are the JAX names of paths not ported yet and raise at render time.
-    ``depth_grad`` and ``bucket``: kept for the backward and bucket-binning
-    slices; this slice renders forward with bucket = 1.
+    ``depth_grad``: the backward compositor (kernel C) propagates the
+    invdepth image's cotangent into the splats' geometry and invdepth;
+    False drops those terms (rasterize_pallas.py:572-573,628-630).
+    ``bucket``: kept for the bucket-binning slice; the port renders with
+    bucket = 1.
     ``pack``, ``chunk_rows``, ``tile_chunk`` and ``mp_route_capacity``
     configure the TPU kernels and XLA stage 4 only and are unused by the
     port (the CUDA compositor walks whole segments).
@@ -78,8 +81,8 @@ class RasterConfig(Struct):
 
 UNUSED_FIELDS = tuple(
     f for f in dataclasses.fields(RasterConfig)
-    if f.name in ("tile_chunk", "pack", "depth_grad", "mp_route_capacity",
-                  "chunk_rows", "bucket"))
+    if f.name in ("tile_chunk", "pack", "mp_route_capacity", "chunk_rows",
+                  "bucket"))
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -138,6 +141,7 @@ def _cell_masks(splats: Splats2D, view_rows: int, cwb: int):
     return words[0], words[1], words[2], (ch << cwb) | cw, nlive
 
 
+@torch.no_grad()
 def duplicate_sort_ranges(splats: Splats2D, ntx: int, nty: int, L: int, *,
                           view_rows: int | None = None, cull: bool = False,
                           live_capacity: int = 0):
@@ -149,7 +153,8 @@ def duplicate_sort_ranges(splats: Splats2D, ntx: int, nty: int, L: int, *,
     per-Gaussian tables (``field[order][rank]``); tile t's entries are
     ``rank[starts[t]:ends[t]]``. Without overflow the segments are exactly
     the JAX package's; ``n = ends[-1]``, the entries kept (JAX pads ``rank``
-    to its static capacity instead)."""
+    to its static capacity instead). Every output is an index: the stages
+    run without autograd."""
     ntiles = ntx * nty
     P = splats.mean2d.shape[0]
     dev = splats.mean2d.device

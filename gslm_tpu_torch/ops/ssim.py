@@ -1,14 +1,15 @@
 """Windowed SSIM (11x11 Gaussian, sigma 1.5) and its per-pixel map
 (gslm_tpu/ops/ssim.py). All five windowed statistics ride one
 channel-stacked separable blur: kernel B on CUDA tensors, its plain
-version on CPU tensors."""
+version on CPU tensors, differentiated by the reversed-tap blur
+(``blur_cuda.blur``)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from gslm_tpu_torch.ops.blur_cuda import blur_same
+from gslm_tpu_torch.ops.blur_cuda import blur
 
 C1 = 0.01 ** 2
 C2 = 0.03 ** 2
@@ -29,7 +30,7 @@ def ssim_map(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
         img1, img2 = img1[None], img2[None]
     stats = torch.cat([img1, img2, img1 * img1, img2 * img2, img1 * img2],
                       dim=1)
-    blurred = blur_same(stats, gaussian_taps(window_size, sigma))
+    blurred = blur(stats, gaussian_taps(window_size, sigma))
     c = img1.shape[1]
     mu1, mu2, e11, e22, e12 = (blurred[:, i * c:(i + 1) * c] for i in range(5))
     mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2

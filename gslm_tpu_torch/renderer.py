@@ -1,7 +1,8 @@
 """High-level render API (gslm_tpu/renderer.py): ``render`` one view,
 ``batch_render`` a camera batch as one raster problem.
 
-Forward only in this slice: both entry points run under ``torch.no_grad``.
+Both entry points are differentiable in every parameter group (kernel C
+is the compositor's VJP); serving callers wrap them in ``torch.no_grad()``.
 ``alive=None`` masks with ``params.alive`` (the JAX package takes the mask
 as an argument; dead slots are transparent either way).
 """
@@ -55,11 +56,13 @@ def apply_exposure(image: torch.Tensor, exposure: torch.Tensor) -> torch.Tensor:
     return out + exposure[..., :3, 3, None, None]
 
 
-def _pre(params, camera, config, active_sh_degree, scaling_modifier, alive):
+def _pre(params, camera, config, active_sh_degree, scaling_modifier, alive,
+         mean2d_offset):
     return preprocess(params, camera, active_sh_degree=active_sh_degree,
                       antialiasing=config.antialiasing,
                       scaling_modifier=scaling_modifier,
-                      alive=params.alive if alive is None else alive)
+                      alive=params.alive if alive is None else alive,
+                      mean2d_offset=mean2d_offset)
 
 
 def _output(image, invdepth, radii, out) -> RenderOutput:
@@ -70,21 +73,23 @@ def _output(image, invdepth, radii, out) -> RenderOutput:
         max_tile_load=torch.as_tensor(out["max_tile_load"]))
 
 
-@torch.no_grad()
 def render(params: GaussianParams, camera: Camera, bg: torch.Tensor, *,
            config: RasterConfig = RasterConfig(),
            active_sh_degree: int | None = None,
            scaling_modifier: float = 1.0,
            use_trained_exp: bool = False,
            alive: torch.Tensor | None = None,
+           mean2d_offset: torch.Tensor | None = None,
            impl: str | None = None) -> RenderOutput:
     """Render one view. ``impl`` (default ``config.impl``): "auto"/"cuda"
-    (kernel A on CUDA tensors, its plain version on CPU tensors) or "ref"."""
+    (kernels A and C on CUDA tensors, their plain versions on CPU tensors)
+    or "ref". ``mean2d_offset``: (P, 2) gradient carrier of the
+    densification statistics (``preprocess``)."""
     impl = resolve_impl(config.impl if impl is None else impl)
     if active_sh_degree is None:
         active_sh_degree = params.sh_degree
     splats = _pre(params, camera, config, active_sh_degree, scaling_modifier,
-                  alive)
+                  alive, mean2d_offset)
     if impl == "ref":
         out = rasterize_ref(splats, camera.height, camera.width, bg)
         zero = torch.zeros((), dtype=torch.int64, device=bg.device)
@@ -101,7 +106,8 @@ def stack_views(params: GaussianParams, cameras: CameraBatch, *,
                 config: RasterConfig = RasterConfig(),
                 active_sh_degree: int | None = None,
                 scaling_modifier: float = 1.0,
-                alive: torch.Tensor | None = None):
+                alive: torch.Tensor | None = None,
+                mean2d_offset: torch.Tensor | None = None):
     """Preprocess every view and stack the B per-view tile grids vertically
     into one canvas: view v's tile rows are offset by v*nty, its splat
     coordinates stay view-local (the compositor wraps tile rows modulo
@@ -113,7 +119,8 @@ def stack_views(params: GaussianParams, cameras: CameraBatch, *,
         active_sh_degree = params.sh_degree
     nty = _cdiv(cameras.height, TILE)
     views = [_pre(params, cameras.view(i), config, active_sh_degree,
-                  scaling_modifier, alive) for i in range(cameras.batch_size)]
+                  scaling_modifier, alive, mean2d_offset)
+             for i in range(cameras.batch_size)]
     fields = {f.name: torch.cat([getattr(s, f.name) for s in views])
               for f in dataclasses.fields(Splats2D)}
     P = params.capacity
@@ -127,27 +134,32 @@ def stack_views(params: GaussianParams, cameras: CameraBatch, *,
     return Splats2D(**fields), radii, nty
 
 
-@torch.no_grad()
 def batch_render(params: GaussianParams, cameras: CameraBatch,
                  bg: torch.Tensor, *, config: RasterConfig = RasterConfig(),
                  active_sh_degree: int | None = None,
                  scaling_modifier: float = 1.0,
                  use_trained_exp: bool = False,
                  alive: torch.Tensor | None = None,
+                 mean2d_offset: torch.Tensor | None = None,
                  impl: str | None = None) -> RenderOutput:
     """Render a padded camera batch as ONE raster problem: one
     duplicate/sort/ranges pass and one compositor launch cover all views
     (``stack_views``). Within each tile the global depth order restricted to
     that view's Gaussians is the view's own depth order, so view v of the
     batch equals ``render`` of view v. Output fields gain a leading B
-    axis."""
+    axis.
+
+    ``mean2d_offset`` is unbatched ((P, 2)): it broadcasts over views, so
+    its cotangent sums over them, the accumulated screen-space gradient
+    that densification reads."""
     impl = resolve_impl(config.impl if impl is None else impl)
     if impl == "ref":
         outs = [render(params, cameras.view(i), bg, config=config,
                        active_sh_degree=active_sh_degree,
                        scaling_modifier=scaling_modifier,
                        use_trained_exp=use_trained_exp, alive=alive,
-                       impl=impl) for i in range(cameras.batch_size)]
+                       mean2d_offset=mean2d_offset, impl=impl)
+                for i in range(cameras.batch_size)]
         return RenderOutput(**{f.name: torch.stack([getattr(o, f.name)
                                                     for o in outs])
                                for f in dataclasses.fields(RenderOutput)})
@@ -156,7 +168,8 @@ def batch_render(params: GaussianParams, cameras: CameraBatch,
     B = cameras.batch_size
     splats, radii, nty = stack_views(
         params, cameras, config=config, active_sh_degree=active_sh_degree,
-        scaling_modifier=scaling_modifier, alive=alive)
+        scaling_modifier=scaling_modifier, alive=alive,
+        mean2d_offset=mean2d_offset)
     out = rasterize_cuda(splats, B * nty * TILE, W, bg, config, view_rows=nty)
     image = out["render"].reshape(3, B, nty * TILE, W)[:, :, :H].transpose(0, 1)
     invd = out["invdepth"].reshape(1, B, nty * TILE, W)[:, :, :H].transpose(0, 1)

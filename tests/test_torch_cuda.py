@@ -6,20 +6,29 @@ version. Imports no JAX, so it runs where only PyTorch is installed:
 Without a card every test skips (CUDA kernels have no CPU mode).
 Tolerances: kernel A at the random-scene bounds of the parity tests
 (mean |Δ| < 2e-4, at most 1% of values above 1e-3: knife edges at the 1/255
-gate); kernel B to 1e-6 (same tap order, no FMA contraction)."""
+gate); kernel C at the same bounds per record field, relative to the
+field's max |plain| (its 1e-4 and 1/255 gates can flip against the plain
+closed form), and bit for bit against itself; kernel B, forward and VJP,
+to 1e-6 (same tap order, no FMA contraction)."""
 
 import numpy as np
 import pytest
 import torch
 
-from gslm_tpu_torch.ops.blur_cuda import blur_plain, blur_same
+from gslm_tpu_torch.config import OptimizationParams
+from gslm_tpu_torch.models.gaussians import PARAM_GROUPS, GaussianAux
+from gslm_tpu_torch.ops.blur_cuda import blur, blur_plain, blur_same
 from gslm_tpu_torch.ops.projection import preprocess
 from gslm_tpu_torch.ops.rasterize_cuda import (composite_tiles,
+                                               composite_tiles_bwd,
+                                               composite_tiles_bwd_plain,
                                                composite_tiles_plain,
                                                tile_records)
 from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig
 from gslm_tpu_torch.ops.ssim import gaussian_taps
+from gslm_tpu_torch.optim import init_adam
 from gslm_tpu_torch.renderer import batch_render, render
+from gslm_tpu_torch.train import loss_and_grads, train_step
 from gslm_tpu_torch.utils.synthetic import random_gaussians, ring_camera_batch
 
 
@@ -30,24 +39,68 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-def test_composite_kernel_matches_plain(cuda):
+def _small_scene(cuda):
     params = random_gaussians(np.random.default_rng(0), n=4096, spread=1.5,
                               device=cuda)
     cam = ring_camera_batch(1, 120, 200, device=cuda).view(0)
     with torch.no_grad():
         splats = preprocess(params, cam, active_sh_degree=3)
-        records, starts, counts, _ = tile_records(splats, 13, 8,
-                                                  RasterConfig())
+        return tile_records(splats, 13, 8, RasterConfig())[:3]
+
+
+def _knife_edge(got, want, scale=1.0):
+    d = (got - want).abs()
+    return (float(d.mean()) < 2e-4 * scale
+            and float((d > 1e-3 * scale).float().mean()) <= 0.01)
+
+
+@pytest.mark.cuda
+def test_composite_kernel_matches_plain(cuda):
+    records, starts, counts = _small_scene(cuda)
     before = composite_tiles.launches
     got, walked = composite_tiles(records, starts, counts, 13, 8)
     want, _ = composite_tiles_plain(records, starts, counts, 13, 8)
     torch.cuda.synchronize()
     assert composite_tiles.launches == before + 1
-    d = (got - want).abs()
-    assert float(d.mean()) < 2e-4
-    assert float((d > 1e-3).float().mean()) <= 0.01
+    assert _knife_edge(got[:, :5], want[:, :5])
+    # exit state: positions agree but for knife edges at T = 1e-4
+    assert float((got[:, 6] != want[:, 6]).float().mean()) <= 0.01
     assert bool((walked <= counts).all())
+
+
+def _bwd_inputs(cuda):
+    records, starts, counts = _small_scene(cuda)
+    tiles, _ = composite_tiles(records, starts, counts, 13, 8)
+    gtiles = torch.randn(counts.shape[0], 5, 256, device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(1))
+    return records, starts, counts, gtiles, tiles[:, 5:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth_grad", [True, False])
+def test_composite_bwd_kernel_matches_plain(cuda, depth_grad):
+    records, starts, counts, gtiles, state = _bwd_inputs(cuda)
+    before = composite_tiles_bwd.launches
+    got = composite_tiles_bwd(records, starts, counts, 13, 8, gtiles, state,
+                              depth_grad)
+    want = composite_tiles_bwd_plain(records, starts, counts, 13, 8, gtiles,
+                                     depth_grad)
+    torch.cuda.synchronize()
+    assert composite_tiles_bwd.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    for f in range(10):
+        scale = float(want[:, f].abs().max()) + 1e-12
+        assert _knife_edge(got[:, f], want[:, f], scale), f
+    if not depth_grad:
+        assert float(got[:, 9].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_composite_bwd_kernel_is_deterministic(cuda):
+    args = _bwd_inputs(cuda)
+    a = composite_tiles_bwd(*args[:3], 13, 8, *args[3:])
+    b = composite_tiles_bwd(*args[:3], 13, 8, *args[3:])
+    assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -60,6 +113,52 @@ def test_blur_kernel_matches_plain(cuda):
     torch.cuda.synchronize()
     assert blur_same.launches == before + 1
     assert float((got - want).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_blur_vjp_matches_reversed_tap_plain(cuda):
+    gen = torch.Generator(cuda).manual_seed(2)
+    x = torch.rand(2, 15, 67, 133, device=cuda, generator=gen,
+                   requires_grad=True)
+    g = torch.randn(2, 15, 67, 133, device=cuda, generator=gen)
+    taps = np.array([0.1, 0.5, 0.2, 0.15, 0.05], np.float32)
+    before = blur_same.launches, blur_same.vjp_launches
+    (got,) = torch.autograd.grad(blur(x, taps), x, g)
+    torch.cuda.synchronize()
+    assert (blur_same.launches, blur_same.vjp_launches) == (
+        before[0] + 2, before[1] + 1)
+    assert float((got - blur_plain(g, taps[::-1])).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_train_step_on_card(cuda):
+    """One Adam step through kernels A, C and B (twice): every gradient,
+    parameter and statistic finite."""
+    params = random_gaussians(np.random.default_rng(3), n=2048, spread=1.5,
+                              device=cuda)
+    cams = ring_camera_batch(1, 72, 96, device=cuda)
+    counts = (composite_tiles.launches, blur_same.launches,
+              composite_tiles_bwd.launches)
+    kw = dict(rcfg=RasterConfig(), opt=OptimizationParams(),
+              active_sh_degree=3, use_exp=False)
+    _, _, _, grads, g_m2d = loss_and_grads(params, cams,
+                                           torch.zeros(3, device=cuda), 0.0,
+                                           **kw)
+    assert all(bool(torch.isfinite(grads[g]).all()) for g in PARAM_GROUPS)
+    assert bool(torch.isfinite(g_m2d).all()) and float(g_m2d.abs().max()) > 0
+    params, aux, _, metrics = train_step(
+        params, GaussianAux.zeros(2048, device=cuda), init_adam(params),
+        cams, torch.zeros(3, device=cuda), 100, 1.0, 0.0,
+        sparse_adam=False, update_stats=True, **kw)
+    torch.cuda.synchronize()
+    assert (composite_tiles.launches - counts[0],
+            blur_same.launches - counts[1],
+            composite_tiles_bwd.launches - counts[2]) == (2, 4, 2)
+    assert all(bool(torch.isfinite(getattr(params, g)).all())
+               for g in PARAM_GROUPS)
+    assert all(bool(torch.isfinite(getattr(aux, f)).all())
+               for f in ("max_radii2d", "xyz_gradient_accum", "denom"))
+    assert np.isfinite(float(metrics["loss"]))
 
 
 @pytest.mark.cuda

@@ -48,9 +48,10 @@ def test_batch_render_matches_jax(scene, use_exp):
                        config=JRasterConfig(dup_capacity=1 << 12),
                        impl="pallas", use_trained_exp=use_exp)
     cams = ring_camera_batch(B, H, W, device="cpu")
-    b = batch_render(tp, cams, torch.tensor(BG),
-                     config=RasterConfig(dup_capacity=1 << 12),
-                     use_trained_exp=use_exp)
+    with torch.no_grad():   # a serving caller: render is differentiable
+        b = batch_render(tp, cams, torch.tensor(BG),
+                         config=RasterConfig(dup_capacity=1 << 12),
+                         use_trained_exp=use_exp)
     assert b.render.shape == (B, 3, H, W)
     for k in ("render", "invdepth"):
         d = np.abs(getattr(b, k).numpy() - np.asarray(getattr(a, k)))
@@ -62,9 +63,10 @@ def test_batch_render_matches_jax(scene, use_exp):
 
     # view v of the batch is the single-view render of v, bit for bit
     for v in range(B):
-        one = render(tp, cams.view(v), torch.tensor(BG),
-                     config=RasterConfig(dup_capacity=1 << 12),
-                     use_trained_exp=use_exp)
+        with torch.no_grad():
+            one = render(tp, cams.view(v), torch.tensor(BG),
+                         config=RasterConfig(dup_capacity=1 << 12),
+                         use_trained_exp=use_exp)
         assert torch.equal(one.render, b.render[v])
         assert torch.equal(one.invdepth, b.invdepth[v])
 
@@ -83,8 +85,8 @@ def test_ref_impl_and_unported_impls(scene):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("tile_chunk", 64), ("pack", 8), ("depth_grad", False),
-    ("mp_route_capacity", 1024), ("chunk_rows", 16), ("bucket", 2)])
+    ("tile_chunk", 64), ("pack", 8), ("mp_route_capacity", 1024),
+    ("chunk_rows", 16), ("bucket", 2)])
 def test_raster_config_rejects_unread_fields(field, value):
     """A field the port does not read yet raises instead of being ignored."""
     with pytest.raises(NotImplementedError, match=field):
