@@ -33,9 +33,26 @@ failed phase exits non-zero:
    group's gradient through the kernels against the gradient through the
    plain compositor (the plain versions patched in here); finite
    gradients, parameters and statistics; ``denom`` rising by exactly the
-   visible count; the loss falling over 10 steps. Then timings: the step,
-   its stages, the device-busy share, kernel C's bound.
-6. a ``{"kernels": [...]}`` line, then the last line
+   visible count; the loss falling over 10 steps.
+6. training timings: the step, its stages, the device-busy share, kernel
+   C's bound.
+7. one Levenberg–Marquardt outer step (cell lm-1080p-w5): the same scene
+   with 50 exposure images, ``ring_camera_batch(50, 1080, 1920)`` as the
+   training views, each view's target the port's render of the scene with
+   ``features_dc`` shifted by a seeded offset, ``LMParams()`` defaults (a
+   5-view window, 50 validation views in chunks of 5, 7 line-search
+   alphas, CG 2 iterations with restart 1 and the divergence check),
+   bench.py's 5-view capacities. Checks: per ``lm_outer_step`` kernel A 71
+   times, B never, C 4 times (Jᵀ·u) and E 6 times (J·v); kernel E against
+   kernel A on the window's own records (the primal) and against its plain
+   version (the tangent, knife-edge bound per row) and bit for bit against
+   itself; the adjoint ⟨J·v, u⟩ = ⟨v, Jᵀ·u⟩ at full width to 1e-4; J·v
+   through the kernels against J·v through the plain compositor; the
+   best validation loss below the starting one, xyz unchanged, finite
+   parameters and step norms; ``lm_phase`` once through its entry point
+   with no capacity growth. Then timings: the step, its stages, the
+   device-busy share, kernel E's bound.
+8. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of gslm_tpu. Without CUDA it exits non-zero
@@ -59,6 +76,12 @@ TRAIN_CAPS = dict(dup_capacity=1_638_400, live_capacity=1_280_000, cull=True)
 # ... scaled to the 4-view serving stack
 CAPS = dict(dup_capacity=VIEWS * 1_638_400, live_capacity=VIEWS * 1_280_000,
             cull=True)
+# bench.py's 5-view LM window capacities (bench.py:272-334)
+LM_CAPS = dict(dup_capacity=6_654_208, live_capacity=5_469_696, cull=True)
+# per lm_outer_step: A = 1 linearization + 7 alphas x 10 val chunks; C = 2
+# restarts + 2 iterations (Jᵀ·u); E = 2 restarts + 2 iterations + 2
+# divergence checks (J·v)
+LM_LAUNCHES = {"A": 71, "B": 0, "C": 4, "E": 6}
 EXPOSURES = 50         # bench.py's exposure images
 TRAIN_STEPS = 10       # steps over which the loss must fall
 PEAK_FP32 = 67e12      # H100 SXM fp32 outside the tensor cores, FLOP/s
@@ -79,10 +102,19 @@ A_ACC = (5, 0)        # T_after >= 1e-4: weight and four accumulators
 # before the pixel's exit (pairs at or past it cost an integer compare):
 C_EVAL = (9, 0)       # dx, dy, power, then the power > 0 gate
 C_EXP = (7, 1)        # past it: expf (MUFU.EX2), opacity, the 0.99 clip
-C_CONTRIB = (55, 2)   # contributing: log1pf (16), T = expf (MUFU.EX2),
+C_CONTRIB = (56, 2)   # contributing: log1pf (16), T = expf (MUFU.EX2),
 #                       S / (1 - a) (MUFU.RCP), dw, da, S, the 10 terms
+#                       (dx c1 recomputed since the shared pair function)
 C_SUM = (10, 0)       # the least reduction: one add per nonzero term (the
 #                       kernel's warp shuffles issue 50 FADD per lane)
+# Kernel E's, counted the same way in csrc/composite_jvp.cu, by how far the
+# pair gets (kernel A's walk and gates):
+E_EVAL = (9, 0)       # dx, dy, power, then the power > 0 gate
+E_EXP = (7, 1)        # past it: expf (MUFU.EX2), opacity, the 0.99 clip
+E_CONTRIB = (23, 1)   # past the 1/255 gate: log1pf (16), lsum, expf
+E_ACC = (41, 1)       # T_after >= 1e-4: weight and accumulators, pow_dot,
+#                       a_dot, T_dot, w_dot, 8 tangent accumulators and
+#                       a_dot / (1 - a) (MUFU.RCP and its Newton step)
 
 
 def check(cond, what: str):
@@ -120,15 +152,16 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(cuda_times(fn, reps, warmup))
 
 
-def device_busy(fn) -> tuple[int, float, float]:
+def device_busy(fn, cpu: bool = True) -> tuple[int, float, float]:
     """One profiled call of ``fn``: (CUDA kernels launched, their summed
-    device time in ms, host wall time in ms, profiler overhead included)."""
+    device time in ms, host wall time in ms, profiler overhead included).
+    ``cpu=False`` traces the device only (fewer events for a long call)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -266,6 +299,7 @@ def run(dev, n_gauss: int, height: int, width: int) -> None:
     tag = f"[{card}]"
     kernels = serve_phase(dev, n_gauss, height, width, tag)
     kernels.append(train_phase(dev, n_gauss, height, width, tag, kernels))
+    kernels.append(lm_phase(dev, n_gauss, height, width, tag, kernels))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -493,7 +527,7 @@ def serve_phase(dev, n_gauss: int, height: int, width: int,
 
 def train_phase(dev, n_gauss: int, height: int, width: int, tag: str,
                 kernels: list[dict]) -> dict:
-    """Phase 5. Adds the training launches to the entries of A and B in
+    """Phases 5-6. Adds the training launches to the entries of A and B in
     ``kernels`` and returns kernel C's entry."""
     import torch
 
@@ -649,7 +683,7 @@ def train_phase(dev, n_gauss: int, height: int, width: int, tag: str,
           flush=True)
     check(losses[-1] < losses[0], "the loss did not fall over 10 steps")
 
-    # ---- 5b. training timings --------------------------------------------
+    # ---- 6. training timings ---------------------------------------------
     step_times = cuda_times(lambda: train_step(
         params, aux, state, cam, bg, 200, 1.0, 0.0, **ts_kw), 5)
     step_ms = statistics.median(step_times)
@@ -728,6 +762,269 @@ def train_phase(dev, n_gauss: int, height: int, width: int, tag: str,
             "max_abs_err": c_err, "ms": t["kernel C"],
             "plain_ms": c_plain_ms, "bound_ms": c_bound,
             "bound_by": "bytes" if c_bound == c_times["bytes"] * 1e3
+            else "operations", "library_ms": None}
+
+
+def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
+             kernels: list[dict]) -> dict:
+    """Phase 7. Adds the LM step's launches to the entries of A, B and C in
+    ``kernels`` and returns kernel E's entry."""
+    import torch
+
+    from gslm_tpu_torch.config import LMParams
+    from gslm_tpu_torch.models import gaussians as G
+    from gslm_tpu_torch.models.gaussians import PARAM_GROUPS
+    from gslm_tpu_torch.ops import rasterize_cuda as rc
+    from gslm_tpu_torch.ops.blur_cuda import blur_same
+    from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig, _cdiv
+    from gslm_tpu_torch.renderer import batch_render, stack_views
+    from gslm_tpu_torch.solver.cg import cgls_damped_unrolled
+    from gslm_tpu_torch.solver.operators import LMOperators
+    from gslm_tpu_torch.solver.residuals import (ResidualState,
+                                                 batch_residuals, res_dot)
+    from gslm_tpu_torch.train_lm import (lm_outer_step, lm_phase as
+                                         lm_phase_entry, select_window,
+                                         val_indices)
+    from gslm_tpu_torch.utils.synthetic import (random_gaussians,
+                                                ring_camera_batch)
+
+    params = random_gaussians(np.random.default_rng(0), n=n_gauss,
+                              capacity=n_gauss, sh_degree=3,
+                              num_images=EXPOSURES, spread=1.5,
+                              scale_range=(-5.5, -3.5), device=dev)
+    all_train = ring_camera_batch(EXPOSURES, height, width, gt_seed=None,
+                                  device=dev)
+    rcfg = RasterConfig(**LM_CAPS)
+    lm = LMParams()
+    mb = lm.micro_batch
+    bg = torch.zeros(3, device=dev)
+    kw = dict(rcfg=rcfg, lm=lm, active_sh_degree=3, use_exp=False)
+
+    # reachable targets: every view of the scene with features_dc shifted
+    shift = torch.tensor(np.random.default_rng(1).normal(
+        0, 0.2, (n_gauss, 1, 3)).astype(np.float32), device=dev)
+    with torch.no_grad():
+        dc = params.features_dc.detach().clone()
+        params.features_dc.add_(shift)
+        targets = [batch_render(params, all_train.take(slice(i, i + mb)), bg,
+                                config=rcfg) for i in range(0, EXPOSURES, mb)]
+        params.features_dc.copy_(dc)
+    check(all(int(t.overflow.max()) == 0 for t in targets),
+          "target render overflows")
+    all_train = all_train.replace(
+        gt_image=torch.cat([t.render for t in targets]))
+    del targets
+    win = select_window(EXPOSURES, lm.num_images, np.random.default_rng(0))
+    vidx = val_indices(EXPOSURES, lm)
+    window, val = all_train.take(win), all_train.take(vidx)
+    lcfg = rcfg.replace(depth_grad=False)
+
+    def residual_fn(p):
+        return batch_residuals(p, window, bg, config=lcfg,
+                               disable_ssim=lm.disable_ssim,
+                               active_sh_degree=3, alive=params.alive)
+
+    @torch.no_grad()
+    def val_loss(p):
+        return sum(batch_residuals(
+            p, val.take(slice(c, c + mb)), bg, config=lcfg,
+            disable_ssim=lm.disable_ssim, active_sh_degree=3,
+            alive=params.alive).loss_scalar
+            for c in range(0, len(vidx), mb))
+
+    start_val = float(val_loss(params))
+
+    # ---- one lm_outer_step on the main path, launches counted -----------
+    rc.composite_tiles.launches = 0
+    blur_same.launches = 0
+    rc.composite_tiles_bwd.launches = 0
+    rc.composite_tiles_jvp.launches = 0
+    t0 = time.perf_counter()
+    new, info = lm_outer_step(params, params.alive, window, val, bg, **kw)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {"A": rc.composite_tiles.launches, "B": blur_same.launches,
+                "C": rc.composite_tiles_bwd.launches,
+                "E": rc.composite_tiles_jvp.launches}
+    print(f"lm_outer_step launches: {launches}", flush=True)
+    check(launches == LM_LAUNCHES,
+          f"lm_outer_step launches {launches}: expected {LM_LAUNCHES}")
+    norms = {g: float(v) for g, v in info["step_norms"].items()}
+    best = float(info["best_val_loss"])
+    print(f"lm_outer_step (window {win}, {len(vidx)} val views): start loss "
+          f"{float(info['start_loss']):.6f}, val loss at the start "
+          f"{start_val:.6f}, val losses "
+          f"{[round(float(v), 6) for v in info['val_losses']]}, best alpha "
+          f"{float(info['best_alpha'])}, best val loss {best:.6f}; step "
+          f"norms {norms}; first call {first_s:.2f} s", flush=True)
+    check(best < start_val, "the LM step did not lower the validation loss")
+    check(torch.equal(new.xyz, params.xyz), "xyz moved with mask_xyz")
+    check(all(bool(torch.isfinite(getattr(new, g)).all())
+              for g in PARAM_GROUPS)
+          and all(np.isfinite(v) for v in norms.values()),
+          "non-finite parameters or step norms")
+
+    # ---- kernel E against kernel A and its plain version ----------------
+    ntx = _cdiv(width, 16)
+    with torch.no_grad():
+        splats, _, nty = stack_views(params, window, config=lcfg)
+        rec, st, cn, _ = rc.tile_records(splats, ntx, len(win) * nty, lcfg,
+                                         nty)
+    gen = torch.Generator(dev).manual_seed(2)
+    # a seeded tangent, each field at its own spread over the records
+    tng = (torch.randn(rec.shape, device=dev, generator=gen)
+           * rec.std(dim=0, keepdim=True))
+    real_jvp = rc.composite_tiles_jvp
+    got, got_dot = real_jvp(rec, tng, st, cn, ntx, nty)
+    again, again_dot = real_jvp(rec, tng, st, cn, ntx, nty)
+    fwd, walked = rc.composite_tiles(rec, st, cn, ntx, nty)
+    want, want_dot = rc.composite_tiles_jvp_plain(rec, tng, st, cn, ntx, nty)
+    torch.cuda.synchronize()
+    e_vs_a = float((got - fwd).abs().max())
+    print(f"kernel E vs kernel A, primal rows 0-6 ({rec.shape[0]} records, "
+          f"{cn.shape[0]} tiles): max|d| {e_vs_a:.3g}"
+          f"{' (bitwise equal)' if torch.equal(got, fwd) else ''}",
+          flush=True)
+    check(e_vs_a <= 1e-6, "kernel E's primal differs from kernel A's")
+    check(torch.equal(got, again) and torch.equal(got_dot, again_dot),
+          "kernel E is not bitwise repeatable")
+    check(bool(torch.isfinite(got_dot).all()), "kernel E: non-finite tangent")
+    ok, e_err = knife_edge_ok(got[:, :rc.IMG_ROWS], want[:, :rc.IMG_ROWS])
+    check(ok, "kernel E's primal disagrees with its plain version")
+    e_rel = []
+    for row in range(rc.IMG_ROWS):
+        scale = float(want_dot[:, row].abs().max()) + 1e-30
+        ok, e = knife_edge_ok(got_dot[:, row], want_dot[:, row], scale)
+        check(ok, f"kernel E's tangent disagrees with plain, row {row}")
+        e_err = max(e_err, e)
+        e_rel.append(e / scale)
+    print(f"kernel E vs plain: max|d| {e_err:.3g}; tangent max|d|/max|plain| "
+          f"per row {[float(f'{r:.3g}') for r in e_rel]}; two runs bitwise "
+          f"equal", flush=True)
+
+    # ---- the adjoint at full width, through kernels E and C --------------
+    group_mask = G.param_group_mask(mask_xyz=lm.mask_xyz)
+    ops = LMOperators(residual_fn, params, group_mask=group_mask,
+                      alive=params.alive)
+    gen = torch.Generator(dev).manual_seed(3)
+    v = {g: torch.randn(x.shape, device=dev, generator=gen)
+         for g, x in params.groups().items()}
+    shape = ops.residual.l1.shape
+    u = ResidualState(*(torch.randn(shape, device=dev, generator=gen)
+                        for _ in range(2)))
+    jv = ops.matvec(v)
+    jtu = ops.matvec_T(u)
+    lhs, rhs = float(res_dot(jv, u)), float(G.vdot(v, jtu))
+    adj = abs(lhs - rhs) / max(abs(lhs), abs(rhs))
+    print(f"adjoint <Jv,u> {lhs:.8g} vs <v,J^T u> {rhs:.8g}: relative "
+          f"{adj:.3g}", flush=True)
+    check(adj <= 1e-4, "J·v and Jᵀ·u are not adjoint")
+
+    # ---- J·v through the kernels against J·v through the plain compositor
+    rc.composite_tiles_jvp = rc.composite_tiles_jvp_plain
+    try:
+        jv_plain = ops.matvec(v)
+    finally:
+        rc.composite_tiles_jvp = real_jvp
+    jv_rel = {}
+    for f in ("l1", "ssim"):
+        a, b = getattr(jv, f), getattr(jv_plain, f)
+        scale = float(b.abs().max()) + 1e-30
+        ok, e = knife_edge_ok(a, b, scale)
+        check(ok, f"J·v ({f}) through the kernels disagrees with the plain "
+                  f"compositor's")
+        jv_rel[f] = float(f"{e / scale:.3g}")
+    dots = float(res_dot(jv, u)), float(res_dot(jv_plain, u))
+    print(f"J·v, kernel E vs plain compositor: max|d|/max|plain| {jv_rel}; "
+          f"<Jv,u> {dots[0]:.8g} vs {dots[1]:.8g}", flush=True)
+
+    # ---- lm_phase once through its entry point ---------------------------
+    _, info2, rcfg2 = lm_phase_entry(None, params, None, all_train, rcfg, bg,
+                                     lm, 0, np.random.default_rng(0), False,
+                                     0.2, 3)
+    torch.cuda.synchronize()
+    check(rcfg2 == rcfg, f"lm_phase grew the capacities to {rcfg2}")
+    check(np.isfinite(float(info2["best_val_loss"])), "lm_phase loss")
+    print(f"lm_phase: capacities unchanged (dup {rcfg2.dup_capacity}, live "
+          f"{rcfg2.live_capacity})", flush=True)
+
+    # ---- timings ----------------------------------------------------------
+    step_times = cuda_times(lambda: lm_outer_step(
+        params, params.alive, window, val, bg, **kw), 3, warmup=0)
+    step_ms = statistics.median(step_times)
+    b = ResidualState(-ops.residual.l1, -ops.residual.ssim)
+    damp = lm.damp_dict()
+    groups = params.groups()
+    s_dir = G.saxpy(-1.0, groups, new.groups())     # the step taken
+
+    def line_search():
+        return [val_loss(G.with_groups(params, G.saxpy(a, s_dir, groups)))
+                for a in (lm.line_search_alpha0 * 0.5 ** i
+                          for i in range(lm.line_search_steps + 1))]
+
+    t = {"linearization forward (LMOperators)": cuda_ms(
+             lambda: LMOperators(residual_fn, params, group_mask=group_mask,
+                                 alive=params.alive), 2),
+         "J·v": cuda_ms(lambda: ops.matvec(v), 3),
+         "Jᵀ·u": cuda_ms(lambda: ops.matvec_T(u), 3),
+         "CGLS (6 J·v, 4 Jᵀ·u)": cuda_ms(lambda: cgls_damped_unrolled(
+             ops.matvec, ops.matvec_T, ops.dot, ops.saxpy,
+             LMOperators.dampmul_for(damp), b, ops.get_initial_solution(),
+             damp, max_iter=lm.cg_max_iter, restart_iter=lm.cg_restart_iter,
+             check_divergence=lm.check_divergence), 1),
+         "line search (7 alphas x 10 val chunks)": cuda_ms(line_search, 1,
+                                                           warmup=0),
+         "kernel E (window)": cuda_ms(
+             lambda: real_jvp(rec, tng, st, cn, ntx, nty), 10),
+         "kernel A (window)": cuda_ms(
+             lambda: rc.composite_tiles(rec, st, cn, ntx, nty), 10)}
+    e_plain_ms = cuda_ms(lambda: rc.composite_tiles_jvp_plain(
+        rec, tng, st, cn, ntx, nty), 2)
+    n_walked = int(walked.long().sum())
+    ntiles = cn.shape[0]
+    work = pair_work(rec, st, cn, ntx, nty)
+    e_fp32, e_mufu = (sum(n * c[i] for n, c in zip(
+        work, (E_EVAL, E_EXP, E_CONTRIB, E_ACC))) for i in (0, 1))
+    # records and tangents walked, starts + counts in, 7 + 5 rows out
+    e_bytes = n_walked * 80 + ntiles * ((rc.OUT_ROWS + rc.IMG_ROWS) * 256 * 4
+                                        + 8)
+    e_times = {"fp32 issue": e_fp32 / FP32_RATE,
+               "MUFU issue": e_mufu / MUFU_RATE,
+               "bytes": e_bytes / PEAK_BYTES}
+    e_bound = max(e_times.values()) * 1e3
+    print(f"{tag} lm_outer_step 5x{width}x{height} window, {len(vidx)} val "
+          f"views: {step_ms:.1f} ms median of 3 (runs "
+          f"{[round(x, 1) for x in step_times]})", flush=True)
+    print(f"{tag} lm_outer_step stages (ms): "
+          + ", ".join(f"{k} {x:.3f}" for k, x in t.items()), flush=True)
+    print(f"{tag} kernel E pairs [evaluated, past power gate, past 1/255 "
+          f"gate, accumulated] {work}, {n_walked} of {rec.shape[0]} records "
+          f"walked: {e_fp32} fp32 + {e_mufu} MUFU lane instructions, "
+          f"{e_bytes} B; bound ms "
+          + ", ".join(f"{k} {x * 1e3:.4f}" for k, x in e_times.items())
+          + f"; kernel E {t['kernel E (window)']:.3f} ms, plain "
+          f"{e_plain_ms:.3f} ms", flush=True)
+    del ops
+    n_kern, busy_ms, wall_ms = device_busy(lambda: lm_outer_step(
+        params, params.alive, window, val, bg, **kw), cpu=False)
+    print(f"{tag} lm_outer_step profiled once: {n_kern} CUDA kernels, device "
+          f"busy {busy_ms:.1f} ms of {wall_ms:.1f} ms wall "
+          f"({busy_ms / wall_ms:.3f}; device-only trace)", flush=True)
+
+    for entry, key in zip(kernels, ("A", "B", "C")):
+        entry["launches_by_path"]["lm_outer_step"] = launches[key]
+        entry["launches"] += launches[key]
+    kernels[0]["ms_lm_window"] = t["kernel A (window)"]
+    return {"name": "composite_jvp", "route": "cuda",
+            "source": "gslm_tpu_torch/csrc/composite_jvp.cu",
+            "replaces": "gslm_tpu/ops/rasterize_pallas_jvp.py:172",
+            "launches": launches["E"],
+            "launches_by_path": {"serve": 0, "train_step": 0,
+                                 "lm_outer_step": launches["E"]},
+            "max_abs_err": e_err, "primal_vs_A_max_abs_err": e_vs_a,
+            "ms": t["kernel E (window)"], "plain_ms": e_plain_ms,
+            "bound_ms": e_bound,
+            "bound_by": "bytes" if e_bound == e_times["bytes"] * 1e3
             else "operations", "library_ms": None}
 
 

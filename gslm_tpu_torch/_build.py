@@ -35,6 +35,8 @@ SIGNATURES = {
                                         _VP]},
     "composite_bwd": {"composite_bwd": [_VP, _VP, _VP, _I, _I, _I, _VP, _VP,
                                         _I, _VP, _VP]},
+    "composite_jvp": {"composite_jvp": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP,
+                                        _VP, _VP]},
     "blur": {"blur_same": [_VP, _VP, _I, _I, _I, _VP, _I, _VP]},
 }
 

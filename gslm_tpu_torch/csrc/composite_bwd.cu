@@ -100,36 +100,29 @@ composite_bwd_kernel(const float* __restrict__ records,
 #pragma unroll
       for (int f = 0; f < NF; ++f) v[f] = 0.f;
       bool active = false;
-      if (lo + i < exit_pos) {
-        const float* r = rec + i * NF;
-        float dx, dy;
-        const float power = splat_power(r, px, py, dx, dy);
-        if (power <= 0.f) {
-          const float expp = expf(power);
-          const float a_raw = r[5] * expp;
-          const float a = fminf(a_raw, ALPHA_MAX);
-          if (a >= ALPHA_MIN) {
-            active = true;
-            const float l_before = fminf(lsum - log1pf(-a), 0.f);
-            const float T = expf(l_before);
-            const float w = a * T;
-            const float dw = r[6] * g_r + r[7] * g_g + r[8] * g_b + r[9] * g_i;
-            const float da = dw * T - S / (1.f - a);
-            S += dw * w;
-            const float dpow = da * a_raw;
-            v[0] = dpow * -(r[2] * dx + r[3] * dy);
-            v[1] = dpow * -(r[4] * dy + r[3] * dx);
-            v[2] = dpow * (-0.5f * dx * dx);
-            v[3] = dpow * (-dx * dy);
-            v[4] = dpow * (-0.5f * dy * dy);
-            v[5] = da * expp;
-            v[6] = w * g_r;
-            v[7] = w * g_g;
-            v[8] = w * g_b;
-            v[9] = w * g_i;
-            lsum = l_before;
-          }
-        }
+      const float* r = rec + i * NF;
+      Pair p;
+      if (lo + i < exit_pos && pair_alpha(r, px, py, p)) {
+        active = true;
+        const float a = p.a, dx = p.dx, dy = p.dy;
+        const float l_before = fminf(lsum - log1pf(-a), 0.f);
+        const float T = expf(l_before);
+        const float w = a * T;
+        const float dw = r[6] * g_r + r[7] * g_g + r[8] * g_b + r[9] * g_i;
+        const float da = dw * T - S / (1.f - a);
+        S += dw * w;
+        const float dpow = da * p.a_raw;
+        v[0] = dpow * -(r[2] * dx + r[3] * dy);
+        v[1] = dpow * -(r[4] * dy + r[3] * dx);
+        v[2] = dpow * (-0.5f * dx * dx);
+        v[3] = dpow * (-dx * dy);
+        v[4] = dpow * (-0.5f * dy * dy);
+        v[5] = da * p.expp;
+        v[6] = w * g_r;
+        v[7] = w * g_g;
+        v[8] = w * g_b;
+        v[9] = w * g_i;
+        lsum = l_before;
       }
       if (__any_sync(FULL, active)) {
 #pragma unroll

@@ -1,8 +1,9 @@
-// Shared by kernel A (composite_fwd.cu) and kernel C (composite_bwd.cu):
-// the record layout, the compositing constants and the per-pair alpha
-// arithmetic. Both kernels evaluate a (record, pixel) pair through the same
-// inline functions, so the backward's gates (power <= 0, alpha >= 1/255)
-// see the very bits the forward saw.
+// Shared by kernel A (composite_fwd.cu), kernel C (composite_bwd.cu) and
+// kernel E (composite_jvp.cu): the record layout, the compositing constants
+// and the per-pair alpha arithmetic. All three evaluate a (record, pixel)
+// pair through the same inline functions, so the backward's and the
+// tangent's gates (power <= 0, alpha >= 1/255) see the very bits the
+// forward saw.
 #pragma once
 
 namespace gslm {
@@ -32,6 +33,24 @@ __device__ __forceinline__ float splat_power(const float* r, float px,
   dx = r[0] - px;
   dy = r[1] - py;
   return -0.5f * (r[2] * dx * dx + r[4] * dy * dy) - r[3] * dx * dy;
+}
+
+// One (record, pixel) pair past the power gate: the offsets, exp(power),
+// the unclipped alpha o exp(power) and the clipped a = min(a_raw, 0.99).
+struct Pair {
+  float dx, dy, expp, a_raw, a;
+};
+
+// Evaluate record r at (px, py): false when the pair contributes nothing
+// (power > 0, or a < 1/255), true with ``p`` filled when it contributes.
+__device__ __forceinline__ bool pair_alpha(const float* r, float px, float py,
+                                           Pair& p) {
+  const float power = splat_power(r, px, py, p.dx, p.dy);
+  if (!(power <= 0.f)) return false;
+  p.expp = expf(power);
+  p.a_raw = r[5] * p.expp;
+  p.a = fminf(p.a_raw, ALPHA_MAX);
+  return p.a >= ALPHA_MIN;
 }
 
 }  // namespace gslm

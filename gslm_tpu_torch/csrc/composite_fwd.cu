@@ -70,11 +70,9 @@ composite_fwd_kernel(const float* __restrict__ records,
     n_walked += n;
     for (int i = 0; i < n && !done; ++i) {
       const float* r = rec + i * NF;
-      float dx, dy;
-      const float power = splat_power(r, px, py, dx, dy);
-      if (power > 0.f) continue;
-      const float a = fminf(r[5] * expf(power), ALPHA_MAX);
-      if (a < ALPHA_MIN) continue;
+      Pair p;
+      if (!pair_alpha(r, px, py, p)) continue;
+      const float a = p.a;
       const float l_after = lsum + log1pf(-a);
       const float t_after = expf(l_after);
       if (t_after < T_EPS) {  // T_before >= 1e-4 holds here by induction

@@ -107,6 +107,17 @@ class CameraBatch(Struct):
                  & (xs < self.widths[:, None, None]))
         return valid[:, None].to(torch.float32)
 
+    def take(self, idx) -> "CameraBatch":
+        """The views ``idx`` (a slice, a list or an index tensor) as a batch
+        on the same canvas."""
+        if isinstance(idx, list):
+            idx = torch.tensor(idx, dtype=torch.long,
+                               device=self.world_view.device)
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name)[idx]
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
+
     def view(self, i: int) -> Camera:
         return Camera(world_view=self.world_view[i], full_proj=self.full_proj[i],
                       campos=self.campos[i], tanfovx=self.tanfovx[i],

@@ -5,7 +5,13 @@ and keep the raw (pre-activation) values: exp on scaling, sigmoid on
 opacity, L2-normalize on the rotation quaternion. The Gaussian count is
 padded to a fixed capacity; the ``alive`` buffer (``GaussianAux.alive`` in
 the JAX package) marks the live slots. ``GaussianAux`` holds the training
-statistics that densification reads."""
+statistics that densification reads.
+
+Vectors in parameter space (gradients, Adam moments, the LM solver's
+iterates) are ``{group: tensor}`` dicts; the LM vector algebra below works
+on them. ``with_groups`` turns such a dict back into renderable
+parameters (``GaussianTensors``) without ``nn.Parameter``, which cannot
+hold a forward-AD dual tensor."""
 
 from __future__ import annotations
 
@@ -26,7 +32,26 @@ PARAM_GROUPS = ("xyz", "features_dc", "features_rest", "scaling", "rotation",
                 "opacity", "exposure")
 
 
-class GaussianParams(nn.Module):
+class _GaussianFields:
+    """What the renderer reads of a parameter set, beyond the seven groups,
+    ``sh_degree`` and ``alive``."""
+
+    @property
+    def capacity(self) -> int:
+        return self.xyz.shape[0]
+
+    def get_scaling(self):
+        return torch.exp(self.scaling)
+
+    def get_features(self):
+        """(C, K+1, 3) concatenated SH coefficients (dc first)."""
+        return torch.cat([self.features_dc, self.features_rest], dim=1)
+
+    def groups(self) -> dict[str, torch.Tensor]:
+        return {g: getattr(self, g).detach() for g in PARAM_GROUPS}
+
+
+class GaussianParams(_GaussianFields, nn.Module):
     """Shapes (C = capacity, K = (sh_degree+1)^2 - 1, M = #images):
     xyz (C,3), features_dc (C,1,3), features_rest (C,K,3), scaling (C,3)
     log scales, rotation (C,4) wxyz quaternions, opacity (C,1) logits,
@@ -46,19 +71,29 @@ class GaussianParams(nn.Module):
                                device=xyz.device)
         self.register_buffer("alive", alive)
 
-    @property
-    def capacity(self) -> int:
-        return self.xyz.shape[0]
 
-    def get_scaling(self):
-        return torch.exp(self.scaling)
+@dataclasses.dataclass
+class GaussianTensors(_GaussianFields, Struct):
+    """The seven groups as plain tensors (which may be forward-AD duals or
+    record autograd), with ``sh_degree`` and ``alive``: renderable like
+    ``GaussianParams``."""
 
-    def get_features(self):
-        """(C, K+1, 3) concatenated SH coefficients (dc first)."""
-        return torch.cat([self.features_dc, self.features_rest], dim=1)
+    xyz: torch.Tensor
+    features_dc: torch.Tensor
+    features_rest: torch.Tensor
+    scaling: torch.Tensor
+    rotation: torch.Tensor
+    opacity: torch.Tensor
+    exposure: torch.Tensor
+    sh_degree: int
+    alive: torch.Tensor
 
-    def groups(self) -> dict[str, torch.Tensor]:
-        return {g: getattr(self, g).detach() for g in PARAM_GROUPS}
+
+def with_groups(params, groups: dict[str, torch.Tensor]) -> GaussianTensors:
+    """Renderable parameters with the seven ``groups`` of a parameter-space
+    vector and the ``sh_degree`` and ``alive`` mask of ``params``."""
+    return GaussianTensors(**{g: groups[g] for g in PARAM_GROUPS},
+                           sh_degree=params.sh_degree, alive=params.alive)
 
 
 @dataclasses.dataclass
@@ -76,9 +111,10 @@ class GaussianAux(Struct):
         return cls(*(torch.zeros(capacity, device=dev) for _ in range(3)))
 
 
-def zeros_like_params(params: GaussianParams) -> dict[str, torch.Tensor]:
+def zeros_like_params(params) -> dict[str, torch.Tensor]:
     """Zeros shaped like every parameter group, keyed by group name (the
-    port's form of a parameter pytree: gradients, Adam moments)."""
+    port's form of a parameter pytree: gradients, Adam moments, LM
+    iterates)."""
     return {g: torch.zeros_like(getattr(params, g)) for g in PARAM_GROUPS}
 
 
@@ -127,3 +163,60 @@ def params_from_numpy(d: dict[str, np.ndarray], sh_degree: int, alive=None,
     if alive is not None:
         alive = torch.tensor(np.asarray(alive, bool), device=dev)
     return GaussianParams(**t, sh_degree=sh_degree, alive=alive)
+
+
+# ---------------------------------------------------------------------------
+# Vector algebra over parameter-space vectors ({group: tensor} dicts): the
+# LM solver's (gslm_tpu/models/gaussians.py:200-268). Multi-device
+# ``vdot_sharded`` comes with the multi-device slice.
+# ---------------------------------------------------------------------------
+
+
+def param_group_mask(**mask) -> dict[str, float]:
+    """Multiplier per group: ``mask_xyz=True`` zeroes that group (masked =
+    excluded from the LM step)."""
+    return {g: 0.0 if mask.get(f"mask_{g}", False) else 1.0
+            for g in PARAM_GROUPS}
+
+
+def apply_group_mask(v: dict, mask: dict[str, float]) -> dict:
+    return {g: v[g] * mask[g] for g in PARAM_GROUPS}
+
+
+def apply_splat_mask(v: dict, alive: torch.Tensor) -> dict:
+    """Zero the per-Gaussian rows that are not alive; exposure is
+    untouched."""
+    def rows(x):
+        return x * alive.to(x.dtype).reshape((-1,) + (1,) * (x.ndim - 1))
+    return {g: v[g] if g == "exposure" else rows(v[g]) for g in PARAM_GROUPS}
+
+
+def vdot(a: dict, b: dict, damp: dict[str, float] | float = 1.0
+         ) -> torch.Tensor:
+    """Damped inner product Σ_g damp_g ⟨a_g, b_g⟩, a 0-d tensor on the
+    vectors' device (no host sync)."""
+    total = torch.zeros((), dtype=torch.float32, device=a["xyz"].device)
+    for g in PARAM_GROUPS:
+        w = damp[g] if isinstance(damp, dict) else damp
+        total = total + w * torch.dot(a[g].reshape(-1), b[g].reshape(-1))
+    return total
+
+
+def saxpy(a, x: dict, y: dict) -> dict:
+    """a*x + y over all groups (``a`` a float or a 0-d tensor)."""
+    return {g: a * x[g] + y[g] for g in PARAM_GROUPS}
+
+
+def scale(a, x: dict) -> dict:
+    return {g: a * x[g] for g in PARAM_GROUPS}
+
+
+def add(x: dict, y: dict) -> dict:
+    return {g: x[g] + y[g] for g in PARAM_GROUPS}
+
+
+def default_damp_matrix() -> dict[str, float]:
+    """LM per-group damping defaults (reference train_jvp.py:229-235)."""
+    return {"xyz": 5e2, "features_dc": 5e-2, "features_rest": 5e-2,
+            "scaling": 5e-2, "rotation": 5e-2, "opacity": 5e-2,
+            "exposure": 1e1}

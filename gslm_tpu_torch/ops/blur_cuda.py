@@ -2,11 +2,11 @@
 version. Counterpart of ``blur_same`` (gslm_tpu/ops/blur_pallas.py).
 
 The blur is linear, so its VJP is the same blur with the taps reversed
-(the JAX package installs that through ``linear_call``): ``blur`` is the
-differentiable entry, a ``torch.autograd.Function`` whose backward is
-``blur_same`` again, so the VJP launches kernel B on the card and takes the
-plain version on the CPU; neither differentiates ``blur_plain`` by
-autograd."""
+(the JAX package installs that through ``linear_call``) and its JVP is the
+same blur of the tangent: ``blur`` is the differentiable entry, a
+``torch.autograd.Function`` whose backward and forward-mode rule are
+``blur_same`` again, so both launch kernel B on the card and take the plain
+version on the CPU; neither differentiates ``blur_plain`` by autograd."""
 
 from __future__ import annotations
 
@@ -74,10 +74,11 @@ def blur_same(img: torch.Tensor, taps) -> torch.Tensor:
 
 blur_same.launches = 0       # kernel B launches in this process
 blur_same.vjp_launches = 0   # of which for ``blur``'s backward
+blur_same.jvp_launches = 0   # of which for ``blur``'s forward-mode rule
 
 
 class Blur(torch.autograd.Function):
-    """``blur_same`` with its reversed-tap VJP."""
+    """``blur_same`` with its reversed-tap VJP and same-tap JVP."""
 
     @staticmethod
     def forward(ctx, img, taps):
@@ -91,7 +92,15 @@ class Blur(torch.autograd.Function):
             blur_same.vjp_launches += 1
         return out, None
 
+    @staticmethod
+    def jvp(ctx, tangent, _):
+        out = blur_same(tangent, ctx.taps)
+        if tangent.is_cuda:
+            blur_same.jvp_launches += 1
+        return out
+
 
 def blur(img: torch.Tensor, taps) -> torch.Tensor:
-    """Differentiable ``blur_same`` (kernel B forward and backward)."""
+    """Differentiable ``blur_same`` (kernel B forward, backward and in
+    forward mode)."""
     return Blur.apply(img, taps)

@@ -1,5 +1,5 @@
-"""Differentiable tile rasterizer around kernels A and C
-(csrc/composite_fwd.cu, csrc/composite_bwd.cu).
+"""Differentiable tile rasterizer around kernels A, C and E
+(csrc/composite_fwd.cu, csrc/composite_bwd.cu, csrc/composite_jvp.cu).
 
 Counterpart of ``rasterize_pallas`` (gslm_tpu/ops/rasterize_pallas.py,
 bucket = 1, mode "vjp"): stages 1-3 of the tile pipeline
@@ -15,15 +15,26 @@ differentiated by PyTorch's indexing backward, a scatter-add onto the
 Gaussians (JAX's ``_gather_records``); the JAX ``bwd_reduce="sortseg"``
 reduction is XLA code, not a kernel, and is not ported.
 
-``composite_tiles`` / ``composite_tiles_bwd`` launch their kernels for CUDA
-tensors and take their plain versions, ``composite_tiles_plain`` /
-``composite_tiles_bwd_plain``, for CPU tensors only.
+Forward mode (the LM solver's J·v) goes through kernel E instead: when
+the gathered records carry a forward-AD tangent, ``rasterize_cuda``
+launches kernel E once on (primal, tangent) and makes the image a dual
+tensor from its two outputs, as the ``custom_jvp`` of JAX's
+``make_jvp_composite`` does (kernel A does not run). One residual function
+thus serves J·v and Jᵀ·u; records that are dual AND record autograd raise.
+
+``composite_tiles`` / ``composite_tiles_bwd`` / ``composite_tiles_jvp``
+launch their kernels for CUDA tensors and take their plain versions,
+``composite_tiles_plain`` / ``composite_tiles_bwd_plain`` /
+``composite_tiles_jvp_plain``, for CPU tensors only.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from gslm_tpu_torch import _build
 from gslm_tpu_torch.ops.composite import (clip_alpha, composite_weights,
@@ -249,6 +260,96 @@ def composite_tiles_bwd(records: torch.Tensor, starts: torch.Tensor,
 composite_tiles_bwd.launches = 0   # kernel C launches in this process
 
 
+def _forward_ad_level():
+    """The active forward-AD level, or a new one (levels do not nest)."""
+    return (contextlib.nullcontext() if fwAD._current_level >= 0
+            else fwAD.dual_level())
+
+
+def composite_tiles_jvp_plain(records: torch.Tensor, tangents: torch.Tensor,
+                              starts: torch.Tensor, counts: torch.Tensor,
+                              ntx: int, view_rows: int,
+                              max_elems: int | None = None):
+    """Plain PyTorch version of kernel E: forward-mode AD of the closed-form
+    composite (``_composite_chunk``) along ``tangents``, over the same tile
+    chunks as ``composite_tiles_plain``. Returns ``(tiles (ntiles, 7, 256),
+    tiles_dot (ntiles, 5, 256))``; ``tiles`` is ``composite_tiles_plain``'s
+    output."""
+    dev = records.device
+    ntiles = counts.shape[0]
+    out = torch.zeros(ntiles, OUT_ROWS, PIX, device=dev)
+    out[:, 4] = 1.0
+    out[:, 6] = counts[:, None].float()
+    out_dot = torch.zeros(ntiles, IMG_ROWS, PIX, device=dev)
+    with torch.no_grad(), _forward_ad_level():
+        dual = fwAD.make_dual(records, tangents)
+        for t0, t1, s_max in _tile_chunks(counts, max_elems
+                                          or _default_max_elems(dev)):
+            if s_max > 0:
+                o = _composite_chunk(dual, starts[t0:t1].long(),
+                                     counts[t0:t1].long(),
+                                     torch.arange(t0, t1, device=dev),
+                                     s_max, ntx, view_rows)
+                primal, tangent = fwAD.unpack_dual(o)
+                out[t0:t1] = primal
+                out_dot[t0:t1] = tangent[:, :IMG_ROWS]
+    return out, out_dot
+
+
+def composite_tiles_jvp(records: torch.Tensor, tangents: torch.Tensor,
+                        starts: torch.Tensor, counts: torch.Tensor, ntx: int,
+                        view_rows: int):
+    """Composite every tile's segment and its tangent along ``tangents``
+    (L, 10) → ``(tiles (ntiles, 7, 256) f32, kernel A's rows; tiles_dot
+    (ntiles, 5, 256) f32 rows [r, g, b, invdepth, t_final])``.
+
+    A CUDA tensor goes through kernel E (or the call raises); a CPU tensor
+    takes the plain version."""
+    if records.device.type == "cpu":
+        return composite_tiles_jvp_plain(records, tangents, starts, counts,
+                                         ntx, view_rows)
+    records, starts, counts = _check_records(records, starts, counts)
+    tangents = tangents.contiguous()
+    if (tangents.dtype != torch.float32 or tangents.device != records.device
+            or tangents.shape != records.shape):
+        raise TypeError(f"tangents must be float32 {tuple(records.shape)} on "
+                        f"{records.device}, got {tuple(tangents.shape)} "
+                        f"{tangents.dtype} on {tangents.device}")
+    ntiles = counts.shape[0]
+    out = torch.empty(ntiles, OUT_ROWS, PIX, device=records.device)
+    out_dot = torch.empty(ntiles, IMG_ROWS, PIX, device=records.device)
+    lib = _build.load("composite_jvp")
+    rc = lib.composite_jvp(records.data_ptr(), tangents.data_ptr(),
+                           starts.data_ptr(), counts.data_ptr(), ntiles, ntx,
+                           view_rows, out.data_ptr(), out_dot.data_ptr(),
+                           torch.cuda.current_stream(records.device).cuda_stream)
+    _build.check(rc, "composite_jvp")
+    composite_tiles_jvp.launches += 1
+    return out, out_dot
+
+
+composite_tiles_jvp.launches = 0   # kernel E launches in this process
+
+
+def composite_image_rows(records, starts, counts, ntx: int, view_rows: int,
+                         depth_grad: bool) -> torch.Tensor:
+    """Rows 0-4 of every tile's composite, differentiable in ``records`` in
+    either mode: reverse mode through ``Composite`` (kernels A and C),
+    forward mode through kernel E when ``records`` carries a forward-AD
+    tangent."""
+    primal, tangent = fwAD.unpack_dual(records)
+    if tangent is None:
+        return Composite.apply(records, starts, counts, ntx, view_rows,
+                               depth_grad)[0][:, :IMG_ROWS]
+    if records.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "records carry a forward-AD tangent and record autograd: "
+            "double-mode differentiation of the compositor is not supported")
+    tiles, tiles_dot = composite_tiles_jvp(primal, tangent, starts, counts,
+                                           ntx, view_rows)
+    return fwAD.make_dual(tiles[:, :IMG_ROWS], tiles_dot)
+
+
 class Composite(torch.autograd.Function):
     """Kernel A with kernel C as its VJP (the vjp branch of gslm_tpu's
     ``_make_composite``). Only rows 0-4 of the output carry gradient; the
@@ -288,10 +389,10 @@ def rasterize_cuda(splats: Splats2D, height: int, width: int,
         view_rows = nty
     records, starts, counts, (total_live, total_aabb) = tile_records(
         splats, ntx, nty, config, view_rows)
-    tiles, _ = Composite.apply(records, starts, counts, ntx, view_rows,
-                               config.depth_grad)
+    tiles = composite_image_rows(records, starts, counts, ntx, view_rows,
+                                 config.depth_grad)
 
-    canvas = (tiles[:, :IMG_ROWS].reshape(nty, ntx, IMG_ROWS, TILE, TILE)
+    canvas = (tiles.reshape(nty, ntx, IMG_ROWS, TILE, TILE)
               .permute(2, 0, 3, 1, 4)
               .reshape(IMG_ROWS, nty * TILE, ntx * TILE)[:, :height, :width])
     rgb, invd, t_final = canvas[0:3], canvas[3:4], canvas[4:5]

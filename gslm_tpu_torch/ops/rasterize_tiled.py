@@ -78,6 +78,13 @@ class RasterConfig(Struct):
         return (self.live_capacity or self.dup_capacity) if self.cull \
             else self.dup_capacity
 
+    def grow(self, factor: int = 2) -> "RasterConfig":
+        """Overflow recovery: every capacity ceiling grows by ``factor``
+        (the post-cull live ceiling too, or the overflow persists)."""
+        return self.replace(dup_capacity=factor * self.dup_capacity,
+                            live_capacity=factor * self.live_capacity,
+                            mp_route_capacity=factor * self.mp_route_capacity)
+
 
 UNUSED_FIELDS = tuple(
     f for f in dataclasses.fields(RasterConfig)

@@ -18,7 +18,8 @@ from gslm_tpu_torch.models.gaussians import GaussianParams
 from gslm_tpu_torch.ops.projection import TILE, Splats2D, preprocess
 from gslm_tpu_torch.ops.rasterize_cuda import rasterize_cuda
 from gslm_tpu_torch.ops.rasterize_ref import rasterize_ref
-from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig, _cdiv
+from gslm_tpu_torch.ops.rasterize_tiled import (RasterConfig, _cdiv,
+                                                _cell_masks)
 from gslm_tpu_torch.struct import Struct
 
 
@@ -176,3 +177,43 @@ def batch_render(params: GaussianParams, cameras: CameraBatch,
     if use_trained_exp:
         image = apply_exposure(image, params.exposure[cameras.exposure_idx])
     return _output(image, invd, radii, out)
+
+
+@torch.no_grad()
+def overflow_probe(params: GaussianParams, cameras: CameraBatch, *,
+                   config: RasterConfig = RasterConfig(),
+                   active_sh_degree: int | None = None,
+                   alive: torch.Tensor | None = None,
+                   per_view: bool = False, n_model: int = 1) -> dict:
+    """Would rendering this camera batch overflow ``config``'s record
+    capacities? Runs the per-Gaussian preprocess of every view and, with
+    culling, the cull cell masks (all views in one pass over the stacked
+    splats); no duplication, sort or compositing.
+
+    ``per_view=False``: dict(n_aabb, n_live, overflow) summed over the
+    views, overflow as the rasterizer flags it (live total over the
+    effective capacity, or AABB total over ``dup_capacity``).
+    ``per_view=True``: (B,) ``n_aabb`` and ``n_live``; capacities bound ONE
+    render, so a caller that renders in micro-batch chunks compares
+    per-chunk sums. ``n_model`` > 1 (band counts of the model-parallel
+    raster) comes with the multi-device slice and raises."""
+    if n_model != 1:
+        raise NotImplementedError(
+            "n_model > 1: the model-parallel raster is not ported yet")
+    B, P = cameras.batch_size, params.capacity
+    splats, _, nty = stack_views(params, cameras, config=config,
+                                 active_sh_degree=active_sh_degree,
+                                 alive=alive)
+    n_aabb = splats.tile_count.reshape(B, P).sum(dim=1)
+    if config.cull:
+        cwb = max(_cdiv(_cdiv(cameras.width, TILE), 8).bit_length(), 1)
+        nlive = _cell_masks(splats, nty, cwb)[-1]
+        n_live = nlive.reshape(B, P).sum(dim=1)
+    else:
+        n_live = n_aabb
+    if per_view:
+        return {"n_aabb": n_aabb, "n_live": n_live}
+    n_aabb, n_live = n_aabb.sum(), n_live.sum()
+    over = ((n_live > config.eff_capacity())
+            | (n_aabb > config.dup_capacity)).to(torch.int32)
+    return {"n_aabb": n_aabb, "n_live": n_live, "overflow": over}

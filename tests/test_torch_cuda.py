@@ -8,20 +8,28 @@ Tolerances: kernel A at the random-scene bounds of the parity tests
 (mean |Δ| < 2e-4, at most 1% of values above 1e-3: knife edges at the 1/255
 gate); kernel C at the same bounds per record field, relative to the
 field's max |plain| (its 1e-4 and 1/255 gates can flip against the plain
-closed form), and bit for bit against itself; kernel B, forward and VJP,
-to 1e-6 (same tap order, no FMA contraction)."""
+closed form), and bit for bit against itself; kernel B, forward, VJP and
+JVP, to 1e-6 (same tap order, no FMA contraction). Kernel E on a dense
+scene where pixels exit: its primal against kernel A's (the same pair
+arithmetic: 1e-6, bit for bit expected), its tangent at the knife-edge
+bound per row relative to max |plain|, and bit for bit against itself;
+one LM outer step through kernels A, C and E: the launch counts and finite
+results."""
 
 import numpy as np
 import pytest
 import torch
+import torch.autograd.forward_ad as fwAD
 
-from gslm_tpu_torch.config import OptimizationParams
+from gslm_tpu_torch.config import LMParams, OptimizationParams
 from gslm_tpu_torch.models.gaussians import PARAM_GROUPS, GaussianAux
 from gslm_tpu_torch.ops.blur_cuda import blur, blur_plain, blur_same
 from gslm_tpu_torch.ops.projection import preprocess
 from gslm_tpu_torch.ops.rasterize_cuda import (composite_tiles,
                                                composite_tiles_bwd,
                                                composite_tiles_bwd_plain,
+                                               composite_tiles_jvp,
+                                               composite_tiles_jvp_plain,
                                                composite_tiles_plain,
                                                tile_records)
 from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig
@@ -29,6 +37,7 @@ from gslm_tpu_torch.ops.ssim import gaussian_taps
 from gslm_tpu_torch.optim import init_adam
 from gslm_tpu_torch.renderer import batch_render, render
 from gslm_tpu_torch.train import loss_and_grads, train_step
+from gslm_tpu_torch.train_lm import lm_outer_step
 from gslm_tpu_torch.utils.synthetic import random_gaussians, ring_camera_batch
 
 
@@ -171,3 +180,86 @@ def test_batched_view_equals_single_view(cuda):
         one = render(params, cams.view(v), bg, use_trained_exp=True)
         assert torch.equal(one.render, out.render[v])
         assert torch.equal(one.invdepth, out.invdepth[v])
+
+
+def _jvp_inputs(cuda):
+    """A dense scene (7,830 of 26,624 pixels exit) and a seeded tangent."""
+    params = random_gaussians(np.random.default_rng(5), n=2048, spread=0.8,
+                              scale_range=(-2.5, -1.5), device=cuda)
+    cam = ring_camera_batch(1, 120, 200, device=cuda).view(0)
+    with torch.no_grad():
+        splats = preprocess(params, cam, active_sh_degree=3)
+        records, starts, counts, _ = tile_records(splats, 13, 8,
+                                                  RasterConfig())
+    tangents = torch.randn(records.shape, device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(4))
+    return records, tangents, starts, counts
+
+
+@pytest.mark.cuda
+def test_composite_jvp_kernel_matches_plain(cuda):
+    records, tangents, starts, counts = _jvp_inputs(cuda)
+    before = composite_tiles_jvp.launches
+    tiles, tiles_dot = composite_tiles_jvp(records, tangents, starts, counts,
+                                           13, 8)
+    fwd, _ = composite_tiles(records, starts, counts, 13, 8)
+    want, want_dot = composite_tiles_jvp_plain(records, tangents, starts,
+                                               counts, 13, 8)
+    torch.cuda.synchronize()
+    assert composite_tiles_jvp.launches == before + 1
+    assert int((fwd[:, 6] < counts[:, None]).sum()) > 1000   # exits taken
+    assert float((tiles - fwd).abs().max()) <= 1e-6
+    assert bool(torch.isfinite(tiles_dot).all())
+    for row in range(5):
+        scale = float(want_dot[:, row].abs().max()) + 1e-12
+        assert _knife_edge(tiles_dot[:, row], want_dot[:, row], scale), row
+    assert _knife_edge(tiles[:, :5], want[:, :5])
+
+
+@pytest.mark.cuda
+def test_composite_jvp_kernel_is_deterministic(cuda):
+    args = _jvp_inputs(cuda)
+    a = composite_tiles_jvp(*args, 13, 8)
+    b = composite_tiles_jvp(*args, 13, 8)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+def test_blur_jvp_matches_plain(cuda):
+    gen = torch.Generator(cuda).manual_seed(5)
+    x = torch.rand(2, 15, 67, 133, device=cuda, generator=gen)
+    v = torch.randn(2, 15, 67, 133, device=cuda, generator=gen)
+    taps = np.array([0.1, 0.5, 0.2, 0.15, 0.05], np.float32)
+    before = blur_same.launches, blur_same.jvp_launches
+    with fwAD.dual_level():
+        primal, tangent = fwAD.unpack_dual(blur(fwAD.make_dual(x, v), taps))
+    torch.cuda.synchronize()
+    assert (blur_same.launches, blur_same.jvp_launches) == (
+        before[0] + 2, before[1] + 1)
+    assert float((primal - blur_plain(x, taps)).abs().max()) <= 1e-6
+    assert float((tangent - blur_plain(v, taps)).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_lm_outer_step_on_card(cuda):
+    """One LM outer step (2-view window, 4 val views in 2 chunks, default
+    CG): A once for the linearization and 7 alphas x 2 chunks, E 6 times,
+    C 4 times; xyz unchanged, finite results."""
+    params = random_gaussians(np.random.default_rng(3), n=2048, spread=1.5,
+                              num_images=6, device=cuda)
+    cams = ring_camera_batch(6, 72, 96, device=cuda)
+    counts = (composite_tiles.launches, composite_tiles_jvp.launches,
+              composite_tiles_bwd.launches)
+    new, info = lm_outer_step(
+        params, params.alive, cams.take(slice(0, 2)), cams.take(slice(2, 6)),
+        torch.zeros(3, device=cuda), rcfg=RasterConfig(),
+        lm=LMParams(num_images=2, micro_batch=2, num_val_views=4),
+        active_sh_degree=3, use_exp=False)
+    torch.cuda.synchronize()
+    assert (composite_tiles.launches - counts[0],
+            composite_tiles_jvp.launches - counts[1],
+            composite_tiles_bwd.launches - counts[2]) == (15, 6, 4)
+    assert torch.equal(new.xyz, params.xyz)
+    assert all(bool(torch.isfinite(getattr(new, g)).all())
+               for g in PARAM_GROUPS)
+    assert np.isfinite(float(info["best_val_loss"]))
