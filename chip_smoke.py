@@ -51,8 +51,25 @@ failed phase exits non-zero:
    best validation loss below the starting one, xyz unchanged, finite
    parameters and step norms; ``lm_phase`` once through its entry point
    with no capacity growth. Then timings: the step, its stages, the
-   device-busy share, kernel E's bound.
-8. a ``{"kernels": [...]}`` line, then the last line
+   device-busy share, kernel E's bound, kernels A and C on the window
+   beside their bounds.
+8. bucket binning (cell train-m1-bucket4-1080p): bench.py's million-
+   Gaussian scene (1,048,576 Gaussians, seed 2, one 1920x1080 view,
+   ``bucket=4``, its capacities). Checks: ``overflow_probe`` gives the
+   render's counts, no overflow; ``render`` launches kernel A once and
+   equals the bucket-1 render (1e-6; bit for bit expected); kernel A with
+   the rect gate against its plain version; ``train_step`` launches A
+   once, B twice, C never and kernel D (bucket backward) once, its results
+   finite, ``denom`` rising by the visible count, the loss falling over 10
+   steps; kernel D against its plain version per field and bit for bit
+   against itself; every group's gradient within 1e-5·max of bucket 1's;
+   J·v through kernel E within 1e-6·max of bucket 1's; the adjoint at
+   bucket 4 (E forward, D backward) to 1e-4. Then timings at bucket 4 and
+   1 (render, front end, gather, kernel, backward, ``train_step`` in
+   turns), the device-busy share, kernels A and D's pairs and bounds, the
+   peak device memory, and every kernel's instruction totals from its
+   SASS.
+9. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of gslm_tpu. Without CUDA it exits non-zero
@@ -61,6 +78,7 @@ before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -115,6 +133,26 @@ E_CONTRIB = (23, 1)   # past the 1/255 gate: log1pf (16), lsum, expf
 E_ACC = (41, 1)       # T_after >= 1e-4: weight and accumulators, pow_dot,
 #                       a_dot, T_dot, w_dot, 8 tangent accumulators and
 #                       a_dot / (1 - a) (MUFU.RCP and its Newton step)
+A_PER_PAIR = (A_EVAL, A_EXP, A_CONTRIB, A_ACC)
+C_PER_PAIR = (C_EVAL, C_EXP, C_CONTRIB, C_SUM)
+E_PER_PAIR = (E_EVAL, E_EXP, E_CONTRIB, E_ACC)
+# Kernel D's, counted the same way in csrc/composite_bucket_bwd.cu (kernel
+# C's walk, composite_bwd_walk.cuh), for pairs inside the rect gate before
+# the pixel's exit; a gated record costs a shared-memory flag, no fp32:
+D_EVAL = (9, 0)       # dx, dy, power, then the power > 0 gate
+D_EXP = (7, 1)        # past it: expf (MUFU.EX2), opacity, the 0.99 clip
+D_CONTRIB = (55, 2)   # contributing: C's 56 less one FMUL the compiler
+#                       shared in this instantiation
+D_SUM = (10, 0)       # the least reduction, as C_SUM
+D_PER_PAIR = (D_EVAL, D_EXP, D_CONTRIB, D_SUM)
+# bench.py's million-Gaussian configuration (bench.py:338-378): seed 2,
+# 1,048,576 Gaussians, one 1080p view, bucket 4, capacities from its
+# bucket-record probe + 5 % (its TPU run counted 2,207,812 AABB and
+# 2,075,156 live bucket records, bench.py:351-352)
+M1_N = 1_048_576
+M1_CAPS = dict(dup_capacity=2_318_336, live_capacity=2_179_072, cull=True,
+               bucket=4)
+M1_BENCH_COUNTS = (2_207_812, 2_075_156)
 
 
 def check(cond, what: str):
@@ -152,6 +190,19 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(cuda_times(fn, reps, warmup))
 
 
+def cuda_timed(fn):
+    """``(fn(), its milliseconds between CUDA events)``: one call, timed
+    where a check makes it anyway (the plain versions take seconds)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def device_busy(fn, cpu: bool = True) -> tuple[int, float, float]:
     """One profiled call of ``fn``: (CUDA kernels launched, their summed
     device time in ms, host wall time in ms, profiler overhead included).
@@ -171,6 +222,48 @@ def device_busy(fn, cpu: bool = True) -> tuple[int, float, float]:
     return len(kernels), busy, wall
 
 
+def host_top_ops(fn, n: int = 6) -> list:
+    """One profiled call of ``fn``: its ``n`` operators with the most host
+    self time, as [name, ms, calls]."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    return [[e.key, round(e.self_cpu_time_total / 1e3, 3), e.count]
+            for e in ops[:n]]
+
+
+@contextlib.contextmanager
+def backward_inputs():
+    """Collects, for every ``Composite.backward`` run inside the block, the
+    arguments of the kernel it launches: kernel C's (records, starts,
+    counts, ntx, view_rows, gtiles, exit state, depth_grad) or, in bucket
+    mode, kernel D's (records, buckets, ntx, view_rows, gtiles, exit state,
+    depth_grad)."""
+    from gslm_tpu_torch.ops import rasterize_cuda as rc
+    real = rc.Composite.backward
+    got = []
+
+    def backward(ctx, gtiles, gwalked):
+        records, starts, counts, tiles = ctx.saved_tensors
+        ntx, view_rows, depth_grad = ctx.geometry
+        rows = (gtiles[:, :rc.IMG_ROWS].clone(), tiles[:, rc.IMG_ROWS:],
+                depth_grad)
+        got.append((records, starts, counts, ntx, view_rows, *rows)
+                   if ctx.buckets is None else
+                   (records, ctx.buckets, ntx, view_rows, *rows))
+        return real(ctx, gtiles, gwalked)
+
+    rc.Composite.backward = staticmethod(backward)
+    try:
+        yield got
+    finally:
+        rc.Composite.backward = staticmethod(real)
+
+
 def knife_edge_ok(got, want, scale: float = 1.0) -> tuple[bool, float]:
     """The random-scene bound of the parity tests, relative to ``scale``:
     mean |Δ| < 2e-4·scale and at most 1% of values with |Δ| > 1e-3·scale.
@@ -181,12 +274,13 @@ def knife_edge_ok(got, want, scale: float = 1.0) -> tuple[bool, float]:
     return ok, float(d.max())
 
 
-def _pair_geometry(records, starts, tiles, S, ntx, view_rows):
-    """Records of G tiles over S slots and their power at every pixel:
-    (rec (G, S, 10), power (G, S, 256))."""
+def _pair_geometry(records, starts, tiles, S, ntx, view_rows, rects=None):
+    """Records of G tiles over S slots, their power at every pixel and, with
+    ``rects``, the rect gate: (rec (G, S, 10), power (G, S, 256), gate
+    (G, S, 1) bool, all True without ``rects``)."""
     import torch
 
-    from gslm_tpu_torch.ops.rasterize_cuda import _tile_pixels
+    from gslm_tpu_torch.ops.rasterize_cuda import _tile_pixels, rect_gate
     slot = torch.arange(S, device=records.device)
     idx = torch.clamp(starts[tiles, None].long() + slot[None], 0,
                       records.shape[0] - 1)
@@ -197,15 +291,18 @@ def _pair_geometry(records, starts, tiles, S, ntx, view_rows):
     power = (-0.5 * (rec[..., 2, None] * dx * dx
                      + rec[..., 4, None] * dy * dy)
              - rec[..., 3, None] * dx * dy)
-    return rec, power
+    gate = (torch.ones_like(idx, dtype=torch.bool) if rects is None
+            else rect_gate(rects[idx], tiles, ntx, view_rows))
+    return rec, power, gate[..., None]
 
 
 def pair_work(records, starts, counts, ntx: int, view_rows: int,
-              max_elems: int = 1 << 25) -> list[int]:
+              rects=None, max_elems: int = 1 << 25) -> list[int]:
     """Kernel A's (record, pixel) pairs on these inputs by how far each
     gets, from the plain arithmetic: [evaluated (the pixel has not exited),
     past the power gate, past the 1/255 gate, accumulated (T_after >=
-    1e-4)]."""
+    1e-4)], then, with ``rects``, the pairs the rect gate skips before the
+    pixel's exit (counted apart from the evaluated ones)."""
     import torch
 
     from gslm_tpu_torch.ops.composite import ALPHA_MAX, ALPHA_MIN, T_EPS
@@ -215,12 +312,13 @@ def pair_work(records, starts, counts, ntx: int, view_rows: int,
     S = max(int(counts.max()), 1)
     G = max(1, max_elems // (S * PIX))
     slot = torch.arange(S, device=dev)
-    n = torch.zeros(4, dtype=torch.long, device=dev)
+    n = torch.zeros(5, dtype=torch.long, device=dev)
     for t0 in range(0, ntiles, G):
         tiles = torch.arange(t0, min(t0 + G, ntiles), device=dev)
-        valid = (slot[None] < counts[tiles, None])[..., None]    # (G, S, 1)
-        rec, power = _pair_geometry(records, starts, tiles, S, ntx,
-                                    view_rows)
+        rec, power, gate = _pair_geometry(records, starts, tiles, S, ntx,
+                                          view_rows, rects)
+        listed = (slot[None] < counts[tiles, None])[..., None]   # (G, S, 1)
+        valid = listed & gate
         past_exp = valid & (power <= 0.0)
         alpha = torch.clamp(
             rec[..., 5, None] * torch.exp(torch.where(past_exp, power, -100.0)),
@@ -232,16 +330,21 @@ def pair_work(records, starts, counts, ntx: int, view_rows: int,
         live = (torch.cumsum(fail, dim=1) - fail) == 0
         n += torch.stack([(valid & live).sum(), (past_exp & live).sum(),
                           (past_con & live).sum(),
-                          (past_con & live & (fail == 0)).sum()])
-    return [int(v) for v in n.tolist()]
+                          (past_con & live & (fail == 0)).sum(),
+                          (listed & ~gate & live).sum()])
+    return [int(v) for v in n.tolist()][:4 if rects is None else 5]
 
 
 def bwd_pair_work(records, starts, counts, ntx: int, view_rows: int, state,
-                  max_elems: int = 1 << 25) -> tuple[list[int], int]:
+                  rects=None, max_elems: int = 1 << 25
+                  ) -> tuple[list[int], int]:
     """Kernel C's work on these inputs from the plain arithmetic and kernel
     A's exit state: ([pairs walked (records below the tile's largest exit
     position, times 256), evaluated (before the pixel's own exit), past the
-    power gate, contributing (past the 1/255 gate)], records walked)."""
+    power gate, contributing (past the 1/255 gate)], records walked). With
+    ``rects`` (kernel D: ``starts`` are each tile's bucket segment) the
+    evaluated pairs are those inside the rect gate and a fifth count, the
+    pairs before the pixel's exit that the gate skips, follows."""
     import torch
 
     from gslm_tpu_torch.ops.composite import ALPHA_MAX, ALPHA_MIN
@@ -253,20 +356,87 @@ def bwd_pair_work(records, starts, counts, ntx: int, view_rows: int, state,
     S = max(int(n_eff.max()), 1)
     G = max(1, max_elems // (S * PIX))
     slot = torch.arange(S, device=dev)
-    n = torch.zeros(4, dtype=torch.long, device=dev)
+    n = torch.zeros(5, dtype=torch.long, device=dev)
     for t0 in range(0, ntiles, G):
         tiles = torch.arange(t0, min(t0 + G, ntiles), device=dev)
-        rec, power = _pair_geometry(records, starts, tiles, S, ntx,
-                                    view_rows)
-        ev = slot[None, :, None] < exit_pos[tiles, None, :]      # (G, S, 256)
+        rec, power, gate = _pair_geometry(records, starts, tiles, S, ntx,
+                                          view_rows, rects)
+        before = slot[None, :, None] < exit_pos[tiles, None, :]  # (G, S, 256)
+        ev = before & gate
         past = ev & (power <= 0.0)
         alpha = torch.clamp(
             rec[..., 5, None] * torch.exp(torch.where(past, power, -100.0)),
             max=ALPHA_MAX)
         con = past & (alpha >= ALPHA_MIN)
         n += torch.stack([(slot[None] < n_eff[tiles, None]).sum() * PIX,
-                          ev.sum(), past.sum(), con.sum()])
-    return [int(v) for v in n.tolist()], int(n_eff.sum())
+                          ev.sum(), past.sum(), con.sum(),
+                          (before & ~gate).sum()])
+    return ([int(v) for v in n.tolist()][:4 if rects is None else 5],
+            int(n_eff.sum()))
+
+
+def fwd_ops(work, per_pair) -> tuple[int, int]:
+    """(fp32, MUFU) lane instructions of a forward walker (kernel A, E)
+    over ``pair_work``'s counts, ``per_pair`` its (EVAL, EXP, CONTRIB,
+    ACC) counts."""
+    return tuple(sum(n * c[i] for n, c in zip(work, per_pair))
+                 for i in (0, 1))
+
+
+def bwd_ops(work, per_pair) -> tuple[int, int]:
+    """(fp32, MUFU) lane instructions of a reverse walker (kernel C, D)
+    over ``bwd_pair_work``'s counts, ``per_pair`` its (EVAL, EXP, CONTRIB,
+    SUM) counts."""
+    _, evaluated, past_power, contrib = work[:4]
+    ev, ex, con, sm = per_pair
+    return tuple(evaluated * ev[i] + past_power * ex[i]
+                 + contrib * (con[i] + sm[i]) for i in (0, 1))
+
+
+def a_cost(records, starts, counts, ntx: int, view_rows: int, walked,
+           rects=None):
+    """Kernel A's pairs by outcome (``pair_work``) on these inputs and its
+    bound in ms: records (and rects) walked, starts + counts in, 7 output
+    rows + walked out."""
+    work = pair_work(records, starts, counts, ntx, view_rows, rects)
+    fp32, mufu = fwd_ops(work, A_PER_PAIR)
+    nbytes = (int(walked.long().sum()) * (40 if rects is None else 56)
+              + counts.shape[0] * (7 * 256 * 4 + 12))
+    return work, bound_times(fp32, mufu, nbytes)[1]
+
+
+def c_cost(records, starts, counts, ntx: int, view_rows: int, state,
+           buckets=None):
+    """Kernel C's (or, with ``buckets``, kernel D's) work on these inputs
+    (per-tile ``starts``/``counts``) and its bound: (pairs, records walked,
+    fp32, MUFU, bytes, bound times, bound ms, bound by). Bytes: the records
+    walked (C; D reads each record and rect once) and drec written once,
+    gtiles + exit state per tile, the segment table."""
+    rects = None if buckets is None else buckets.rects
+    work, walked = bwd_pair_work(records, starts, counts, ntx, view_rows,
+                                 state, rects)
+    fp32, mufu = bwd_ops(work, C_PER_PAIR if buckets is None
+                         else D_PER_PAIR)
+    ntiles, n = counts.shape[0], records.shape[0]
+    if buckets is None:
+        nbytes = walked * 40 + n * 40 + ntiles * (7 * 256 * 4 + 8)
+    else:
+        nbytes = (n * (40 + 16 + 40) + ntiles * 7 * 256 * 4
+                  + buckets.bcounts.shape[0] * 8)
+    return (work, walked, fp32, mufu, nbytes,
+            *bound_times(fp32, mufu, nbytes))
+
+
+def bound_times(fp32: int, mufu: int, nbytes: int) -> tuple[dict, float,
+                                                             str]:
+    """The least times (ms) of ``fp32`` and ``mufu`` lane instructions and
+    ``nbytes`` moved on this card, the bound (the largest) and what sets it
+    ("operations" or "bytes")."""
+    times = {"fp32 issue": fp32 / FP32_RATE * 1e3,
+             "MUFU issue": mufu / MUFU_RATE * 1e3,
+             "bytes": nbytes / PEAK_BYTES * 1e3}
+    ms = max(times.values())
+    return times, ms, "bytes" if ms == times["bytes"] else "operations"
 
 
 def main() -> int:
@@ -300,6 +470,8 @@ def run(dev, n_gauss: int, height: int, width: int) -> None:
     kernels = serve_phase(dev, n_gauss, height, width, tag)
     kernels.append(train_phase(dev, n_gauss, height, width, tag, kernels))
     kernels.append(lm_phase(dev, n_gauss, height, width, tag, kernels))
+    kernels.insert(3, bucket_phase(dev, M1_N, height, width, tag, kernels))
+    sass_totals()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -340,7 +512,7 @@ def serve_phase(dev, n_gauss: int, height: int, width: int,
         # ---- 2. kernels against their plain versions ---------------------
         sp0 = preprocess(params, cams.view(0), active_sh_degree=3,
                          alive=params.alive)
-        rec0, st0, cn0, _ = tile_records(sp0, ntx, nty, cfg)
+        rec0, st0, cn0, *_ = tile_records(sp0, ntx, nty, cfg)
         got, walked0 = composite_tiles(rec0, st0, cn0, ntx, nty)
         want, _ = composite_tiles_plain(rec0, st0, cn0, ntx, nty)
         torch.cuda.synchronize()
@@ -403,7 +575,7 @@ def serve_phase(dev, n_gauss: int, height: int, width: int,
         # kernel A against its plain version on the path's own inputs: the
         # 4-view stack, where tile rows wrap modulo view_rows
         splats, _, _ = stack_views(params, cams, config=cfg)
-        rec, st, cn, _ = tile_records(splats, ntx, VIEWS * nty, cfg, nty)
+        rec, st, cn, *_ = tile_records(splats, ntx, VIEWS * nty, cfg, nty)
         got, walked = composite_tiles(rec, st, cn, ntx, nty)
         want, _ = composite_tiles_plain(rec, st, cn, ntx, nty)
         torch.cuda.synchronize()
@@ -451,18 +623,14 @@ def serve_phase(dev, n_gauss: int, height: int, width: int,
         n_walked = int(walked.long().sum())
         ntiles = cn.shape[0]
         work = pair_work(rec, st, cn, ntx, nty)
-        a_fp32, a_mufu = (sum(n * c[i] for n, c in zip(
-            work, (A_EVAL, A_EXP, A_CONTRIB, A_ACC))) for i in (0, 1))
+        a_fp32, a_mufu = fwd_ops(work, A_PER_PAIR)
         # records walked, starts + counts in, 7 output rows + walked out
         a_bytes = n_walked * 40 + ntiles * (OUT_ROWS * 256 * 4 + 12)
-        a_times = {"fp32 issue": a_fp32 / FP32_RATE,
-                   "MUFU issue": a_mufu / MUFU_RATE,
-                   "bytes": a_bytes / PEAK_BYTES}
-        a_bound = max(a_times.values()) * 1e3
+        a_times, a_bound, a_by = bound_times(a_fp32, a_mufu, a_bytes)
         print(f"{tag} kernel A pairs [evaluated, past power gate, past 1/255 "
               f"gate, accumulated] {work}: {a_fp32} fp32 + {a_mufu} MUFU lane "
               f"instructions, {a_bytes} B; bound ms "
-              + ", ".join(f"{k} {v * 1e3:.4f}" for k, v in a_times.items()),
+              + ", ".join(f"{k} {v:.4f}" for k, v in a_times.items()),
               flush=True)
         print(f"{tag} batch_render {VIEWS}x{width}x{height}: {br_ms:.3f} ms median "
               f"of 5 (runs {[round(t, 3) for t in br_times]}); pair_metrics "
@@ -510,9 +678,7 @@ def serve_phase(dev, n_gauss: int, height: int, width: int,
          "launches_by_path": {"serve": launches["A"]},
          "max_abs_err": err["A"],
          "ms": stage["kernel A"], "plain_ms": a_plain_ms,
-         "bound_ms": a_bound,
-         "bound_by": "bytes" if a_bound == a_times["bytes"] * 1e3
-         else "operations", "library_ms": None},
+         "bound_ms": a_bound, "bound_by": a_by, "library_ms": None},
         {"name": "blur_same", "route": "cuda",
          "source": "gslm_tpu_torch/csrc/blur.cu",
          "replaces": "gslm_tpu/ops/blur_pallas.py:87",
@@ -574,19 +740,7 @@ def train_phase(dev, n_gauss: int, height: int, width: int, tag: str,
 
     # ---- one train_step on the main path, kernel C's inputs captured ----
     real_bwd = rc.composite_tiles_bwd
-    real_backward = rc.Composite.backward
-    captured = []
-
-    def capturing_backward(ctx, gtiles, gwalked):
-        records, starts, counts, tiles = ctx.saved_tensors
-        ntx, view_rows, depth_grad = ctx.geometry
-        captured.append((records, starts, counts, ntx, view_rows,
-                         gtiles[:, :rc.IMG_ROWS].clone(),
-                         tiles[:, rc.IMG_ROWS:], depth_grad))
-        return real_backward(ctx, gtiles, gwalked)
-
-    rc.Composite.backward = staticmethod(capturing_backward)
-    try:
+    with backward_inputs() as captured:
         rc.composite_tiles.launches = 0
         blur_same.launches = 0
         blur_same.vjp_launches = 0
@@ -597,8 +751,6 @@ def train_phase(dev, n_gauss: int, height: int, width: int, tag: str,
         launches = {"A": rc.composite_tiles.launches, "B": blur_same.launches,
                     "C": real_bwd.launches}
         b_vjp = blur_same.vjp_launches
-    finally:
-        rc.Composite.backward = staticmethod(real_backward)
     print(f"train_step launches: {launches} (B's VJP {b_vjp})", flush=True)
     check(launches == {"A": 1, "B": 2, "C": 1} and b_vjp == 1,
           f"train_step launches {launches}, B's VJP {b_vjp}: expected A "
@@ -653,8 +805,8 @@ def train_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     # ---- gradients through the kernels against the plain compositor -----
     _, _, _, gk, mk = loss_and_grads(params, cam, bg, 0.0, **lg_kw)
     real_fwd = rc.composite_tiles
-    rc.composite_tiles = (lambda r, s, c, nx, vr:
-                          rc.composite_tiles_plain(r, s, c, nx, vr))
+    rc.composite_tiles = (lambda r, s, c, nx, vr, rects=None:
+                          rc.composite_tiles_plain(r, s, c, nx, vr, rects))
     rc.composite_tiles_bwd = (lambda r, s, c, nx, vr, gt, _, dg:
                               rc.composite_tiles_bwd_plain(r, s, c, nx, vr,
                                                            gt, dg))
@@ -718,19 +870,10 @@ def train_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     c_plain_ms = cuda_ms(lambda: rc.composite_tiles_bwd_plain(
         rec, st, cn, ntx, vrows, gtiles, depth_grad), 2)
 
-    work, c_records = bwd_pair_work(rec, st, cn, ntx, vrows, xstate)
-    walked_pairs, evaluated, past_power, contrib = work
-    c_fp32, c_mufu = (evaluated * C_EVAL[i] + past_power * C_EXP[i]
-                      + contrib * (C_CONTRIB[i] + C_SUM[i]) for i in (0, 1))
-    # records walked in, drec out (every row), gtiles + exit state + the
-    # segment table per tile
-    ntiles = cn.shape[0]
-    c_bytes = (c_records * 40 + rec.shape[0] * 40
-               + ntiles * ((rc.IMG_ROWS + 2) * 256 * 4 + 8))
-    c_times = {"fp32 issue": c_fp32 / FP32_RATE,
-               "MUFU issue": c_mufu / MUFU_RATE,
-               "bytes": c_bytes / PEAK_BYTES}
-    c_bound = max(c_times.values()) * 1e3
+    work, c_records, c_fp32, c_mufu, c_bytes, c_times, c_bound, c_by = \
+        c_cost(rec, st, cn, ntx, vrows, xstate)
+    a_view_bound = a_cost(rec, st, cn, ntx, vrows,
+                          real_fwd(rec, st, cn, ntx, vrows)[1])[1]
     print(f"{tag} train_step 1x{width}x{height}: {step_ms:.3f} ms median of "
           f"5 (runs {[round(v, 3) for v in step_times]})", flush=True)
     print(f"{tag} train_step stages (ms): "
@@ -743,14 +886,18 @@ def train_phase(dev, n_gauss: int, height: int, width: int, tag: str,
           f"contributing] {work}, {c_records} of {rec.shape[0]} records "
           f"walked: {c_fp32} fp32 + {c_mufu} MUFU lane instructions, "
           f"{c_bytes} B; bound ms "
-          + ", ".join(f"{k} {v * 1e3:.4f}" for k, v in c_times.items())
+          + ", ".join(f"{k} {v:.4f}" for k, v in c_times.items())
           + f"; kernel C {t['kernel C']:.3f} ms, plain {c_plain_ms:.3f} ms",
           flush=True)
+    print(f"{tag} kernel A on the training view: "
+          f"{t['kernel A (training view)']:.3f} ms vs bound "
+          f"{a_view_bound:.4f} ms", flush=True)
 
     for entry, key in zip(kernels, ("A", "B")):
         entry["launches_by_path"]["train_step"] = launches[key]
         entry["launches"] += launches[key]
     kernels[0]["ms_train_view"] = t["kernel A (training view)"]
+    kernels[0]["bound_ms_train_view"] = a_view_bound
     kernels[1]["vjp_launches"] = b_vjp
     kernels[1]["vjp_ms"] = t["blur VJP (kernel B, reversed taps)"]
     kernels[1]["vjp_max_abs_err"] = vjp_err
@@ -761,8 +908,7 @@ def train_phase(dev, n_gauss: int, height: int, width: int, tag: str,
             "launches_by_path": {"serve": 0, "train_step": launches["C"]},
             "max_abs_err": c_err, "ms": t["kernel C"],
             "plain_ms": c_plain_ms, "bound_ms": c_bound,
-            "bound_by": "bytes" if c_bound == c_times["bytes"] * 1e3
-            else "operations", "library_ms": None}
+            "bound_by": c_by, "library_ms": None}
 
 
 def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
@@ -868,7 +1014,7 @@ def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     ntx = _cdiv(width, 16)
     with torch.no_grad():
         splats, _, nty = stack_views(params, window, config=lcfg)
-        rec, st, cn, _ = rc.tile_records(splats, ntx, len(win) * nty, lcfg,
+        rec, st, cn, *_ = rc.tile_records(splats, ntx, len(win) * nty, lcfg,
                                          nty)
     gen = torch.Generator(dev).manual_seed(2)
     # a seeded tangent, each field at its own spread over the records
@@ -878,8 +1024,8 @@ def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     got, got_dot = real_jvp(rec, tng, st, cn, ntx, nty)
     again, again_dot = real_jvp(rec, tng, st, cn, ntx, nty)
     fwd, walked = rc.composite_tiles(rec, st, cn, ntx, nty)
-    want, want_dot = rc.composite_tiles_jvp_plain(rec, tng, st, cn, ntx, nty)
-    torch.cuda.synchronize()
+    (want, want_dot), e_plain_ms = cuda_timed(
+        lambda: rc.composite_tiles_jvp_plain(rec, tng, st, cn, ntx, nty))
     e_vs_a = float((got - fwd).abs().max())
     print(f"kernel E vs kernel A, primal rows 0-6 ({rec.shape[0]} records, "
           f"{cn.shape[0]} tiles): max|d| {e_vs_a:.3g}"
@@ -913,7 +1059,9 @@ def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     u = ResidualState(*(torch.randn(shape, device=dev, generator=gen)
                         for _ in range(2)))
     jv = ops.matvec(v)
-    jtu = ops.matvec_T(u)
+    with backward_inputs() as captured:   # kernel C's inputs on the window
+        jtu = ops.matvec_T(u)
+    c_args = captured[0]
     lhs, rhs = float(res_dot(jv, u)), float(G.vdot(v, jtu))
     adj = abs(lhs - rhs) / max(abs(lhs), abs(rhs))
     print(f"adjoint <Jv,u> {lhs:.8g} vs <v,J^T u> {rhs:.8g}: relative "
@@ -950,7 +1098,7 @@ def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
 
     # ---- timings ----------------------------------------------------------
     step_times = cuda_times(lambda: lm_outer_step(
-        params, params.alive, window, val, bg, **kw), 3, warmup=0)
+        params, params.alive, window, val, bg, **kw), 2, warmup=0)
     step_ms = statistics.median(step_times)
     b = ResidualState(-ops.residual.l1, -ops.residual.ssim)
     damp = lm.damp_dict()
@@ -965,35 +1113,35 @@ def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     t = {"linearization forward (LMOperators)": cuda_ms(
              lambda: LMOperators(residual_fn, params, group_mask=group_mask,
                                  alive=params.alive), 2),
-         "J·v": cuda_ms(lambda: ops.matvec(v), 3),
+         "J·v": cuda_ms(lambda: ops.matvec(v), 2),
          "Jᵀ·u": cuda_ms(lambda: ops.matvec_T(u), 3),
          "CGLS (6 J·v, 4 Jᵀ·u)": cuda_ms(lambda: cgls_damped_unrolled(
              ops.matvec, ops.matvec_T, ops.dot, ops.saxpy,
              LMOperators.dampmul_for(damp), b, ops.get_initial_solution(),
              damp, max_iter=lm.cg_max_iter, restart_iter=lm.cg_restart_iter,
-             check_divergence=lm.check_divergence), 1),
+             check_divergence=lm.check_divergence), 1, warmup=0),
          "line search (7 alphas x 10 val chunks)": cuda_ms(line_search, 1,
                                                            warmup=0),
          "kernel E (window)": cuda_ms(
              lambda: real_jvp(rec, tng, st, cn, ntx, nty), 10),
          "kernel A (window)": cuda_ms(
-             lambda: rc.composite_tiles(rec, st, cn, ntx, nty), 10)}
-    e_plain_ms = cuda_ms(lambda: rc.composite_tiles_jvp_plain(
-        rec, tng, st, cn, ntx, nty), 2)
+             lambda: rc.composite_tiles(rec, st, cn, ntx, nty), 10),
+         "kernel C (window)": cuda_ms(
+             lambda: rc.composite_tiles_bwd(*c_args), 10)}
     n_walked = int(walked.long().sum())
     ntiles = cn.shape[0]
     work = pair_work(rec, st, cn, ntx, nty)
-    e_fp32, e_mufu = (sum(n * c[i] for n, c in zip(
-        work, (E_EVAL, E_EXP, E_CONTRIB, E_ACC))) for i in (0, 1))
+    e_fp32, e_mufu = fwd_ops(work, E_PER_PAIR)
     # records and tangents walked, starts + counts in, 7 + 5 rows out
     e_bytes = n_walked * 80 + ntiles * ((rc.OUT_ROWS + rc.IMG_ROWS) * 256 * 4
                                         + 8)
-    e_times = {"fp32 issue": e_fp32 / FP32_RATE,
-               "MUFU issue": e_mufu / MUFU_RATE,
-               "bytes": e_bytes / PEAK_BYTES}
-    e_bound = max(e_times.values()) * 1e3
+    e_times, e_bound, e_by = bound_times(e_fp32, e_mufu, e_bytes)
+    a_window_bound = bound_times(*fwd_ops(work, A_PER_PAIR), n_walked * 40
+                                 + ntiles * (rc.OUT_ROWS * 256 * 4 + 12))[1]
+    c_work, c_records, *_, c_window_bound, _ = c_cost(*c_args[:5],
+                                                      c_args[6])
     print(f"{tag} lm_outer_step 5x{width}x{height} window, {len(vidx)} val "
-          f"views: {step_ms:.1f} ms median of 3 (runs "
+          f"views: {step_ms:.1f} ms median of 2 (runs "
           f"{[round(x, 1) for x in step_times]})", flush=True)
     print(f"{tag} lm_outer_step stages (ms): "
           + ", ".join(f"{k} {x:.3f}" for k, x in t.items()), flush=True)
@@ -1001,9 +1149,15 @@ def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
           f"gate, accumulated] {work}, {n_walked} of {rec.shape[0]} records "
           f"walked: {e_fp32} fp32 + {e_mufu} MUFU lane instructions, "
           f"{e_bytes} B; bound ms "
-          + ", ".join(f"{k} {x * 1e3:.4f}" for k, x in e_times.items())
+          + ", ".join(f"{k} {x:.4f}" for k, x in e_times.items())
           + f"; kernel E {t['kernel E (window)']:.3f} ms, plain "
           f"{e_plain_ms:.3f} ms", flush=True)
+    print(f"{tag} kernel A on the window (its pairs are E's): "
+          f"{t['kernel A (window)']:.3f} ms vs bound {a_window_bound:.4f} ms;"
+          f" kernel C on the window (one Jᵀ·u): pairs [walked, evaluated, "
+          f"past power gate, contributing] {c_work}, {c_records} records "
+          f"walked, {t['kernel C (window)']:.3f} ms vs bound "
+          f"{c_window_bound:.4f} ms", flush=True)
     del ops
     n_kern, busy_ms, wall_ms = device_busy(lambda: lm_outer_step(
         params, params.alive, window, val, bg, **kw), cpu=False)
@@ -1015,6 +1169,9 @@ def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
         entry["launches_by_path"]["lm_outer_step"] = launches[key]
         entry["launches"] += launches[key]
     kernels[0]["ms_lm_window"] = t["kernel A (window)"]
+    kernels[0]["bound_ms_lm_window"] = a_window_bound
+    kernels[2]["ms_lm_window"] = t["kernel C (window)"]
+    kernels[2]["bound_ms_lm_window"] = c_window_bound
     return {"name": "composite_jvp", "route": "cuda",
             "source": "gslm_tpu_torch/csrc/composite_jvp.cu",
             "replaces": "gslm_tpu/ops/rasterize_pallas_jvp.py:172",
@@ -1023,9 +1180,406 @@ def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
                                  "lm_outer_step": launches["E"]},
             "max_abs_err": e_err, "primal_vs_A_max_abs_err": e_vs_a,
             "ms": t["kernel E (window)"], "plain_ms": e_plain_ms,
-            "bound_ms": e_bound,
-            "bound_by": "bytes" if e_bound == e_times["bytes"] * 1e3
-            else "operations", "library_ms": None}
+            "bound_ms": e_bound, "bound_by": e_by, "library_ms": None}
+
+
+def sass_totals() -> None:
+    """Per kernel function of every built library, its instruction count
+    and FFMA, FADD, FMUL and MUFU totals in the sm_90a SASS (``cuobjdump
+    -sass``): a change to a shared header must leave the bucket-1 kernels'
+    totals as they were (the per-pair counts above are read from the same
+    SASS)."""
+    import collections
+    import re
+    import shutil
+
+    from gslm_tpu_torch import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for name in _build.SIGNATURES:
+        sass = subprocess.run([tool, "-sass", str(_build._lib_path(name))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        for fn, body in re.findall(
+                r"Function : (\S+)\n(.*?)(?=\n\s+Function : |\Z)", sass,
+                re.S):
+            ops = collections.Counter(re.findall(
+                r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", body))
+            m = re.search(r"(\w+?_kernel)(ILb([01])E)?", fn)
+            kernel = m.group(1).split("_cu_")[-1] if m else fn
+            kernel = re.sub(r"^[0-9a-f]+\d+", "", kernel)
+            if m and m.group(3):
+                kernel += f"<RECT={'true' if m.group(3) == '1' else 'false'}>"
+            print(f"SASS {name}: {kernel} {sum(ops.values())} instructions; "
+                  + ", ".join(f"{k} {ops[k]}" for k in ("FFMA", "FADD",
+                                                        "FMUL", "MUFU")),
+                  flush=True)
+
+
+def bucket_phase(dev, n_gauss: int, height: int, width: int, tag: str,
+                 kernels: list[dict]) -> dict:
+    """Phase 8 (cell train-m1-bucket4-1080p). Adds the bucket path's
+    launches to the entries of A, B, C and E in ``kernels`` and returns
+    kernel D's entry."""
+    import math
+
+    import torch
+    import torch.autograd.forward_ad as fwAD
+
+    from gslm_tpu_torch.config import LMParams, OptimizationParams
+    from gslm_tpu_torch.models import gaussians as G
+    from gslm_tpu_torch.models.gaussians import PARAM_GROUPS, GaussianAux
+    from gslm_tpu_torch.ops import rasterize_cuda as rc
+    from gslm_tpu_torch.ops.blur_cuda import blur_same
+    from gslm_tpu_torch.ops.rasterize_tiled import (RasterConfig, _cdiv,
+                                                    bucket_splats,
+                                                    duplicate_sort_ranges)
+    from gslm_tpu_torch.optim import init_adam
+    from gslm_tpu_torch.renderer import overflow_probe, render, stack_views
+    from gslm_tpu_torch.solver.operators import LMOperators
+    from gslm_tpu_torch.solver.residuals import (ResidualState,
+                                                 batch_residuals, res_dot,
+                                                 scalar_training_loss)
+    from gslm_tpu_torch.train import loss_and_grads, train_step
+    from gslm_tpu_torch.utils.synthetic import (random_gaussians,
+                                                ring_camera_batch)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = random_gaussians(np.random.default_rng(2), n=n_gauss,
+                              capacity=n_gauss, sh_degree=3, num_images=1,
+                              spread=1.5, scale_range=(-5.5, -3.5),
+                              device=dev)
+    cams = ring_camera_batch(1, height, width, device=dev)
+    cam = cams.view(0)
+    bg = torch.zeros(3, device=dev)
+    ntx, nty = _cdiv(width, 16), _cdiv(height, 16)
+    opt = OptimizationParams()
+
+    def launches():
+        return {"A": rc.composite_tiles.launches, "B": blur_same.launches,
+                "C": rc.composite_tiles_bwd.launches,
+                "D": rc.composite_tiles_bucket_bwd.launches,
+                "E": rc.composite_tiles_jvp.launches}
+
+    def zero_launches():
+        for f in (rc.composite_tiles, blur_same, rc.composite_tiles_bwd,
+                  rc.composite_tiles_bucket_bwd, rc.composite_tiles_jvp):
+            f.launches = 0
+
+    def from_probe(pr, bucket):
+        return RasterConfig(
+            dup_capacity=256 * math.ceil(1.05 * int(pr["n_aabb"]) / 256),
+            live_capacity=256 * math.ceil(1.05 * int(pr["n_live"]) / 256),
+            cull=True, bucket=bucket)
+
+    # ---- 1. the probe at bucket 4, and bucket 1's capacities ------------
+    cfg4 = RasterConfig(**M1_CAPS)
+    pr4 = overflow_probe(params, cams, config=cfg4)
+    counts4 = (int(pr4["n_aabb"]), int(pr4["n_live"]))
+    print(f"m1 overflow_probe at bucket 4: n_aabb {counts4[0]}, n_live "
+          f"{counts4[1]} (bench.py's TPU probe: {M1_BENCH_COUNTS[0]} / "
+          f"{M1_BENCH_COUNTS[1]}); overflow {int(pr4['overflow'])} at dup "
+          f"{cfg4.dup_capacity} / live {cfg4.live_capacity}", flush=True)
+    if int(pr4["overflow"]):
+        cfg4 = from_probe(pr4, 4)
+        print(f"m1 capacities sized from the port's probe + 5 %: dup "
+              f"{cfg4.dup_capacity} / live {cfg4.live_capacity}", flush=True)
+    cfg1 = from_probe(overflow_probe(params, cams, config=RasterConfig(
+        cull=True)), 1)
+    print(f"m1 bucket-1 capacities (probe + 5 %): dup {cfg1.dup_capacity} / "
+          f"live {cfg1.live_capacity}", flush=True)
+
+    with torch.no_grad():
+        # ---- 2. render at bucket 4 on the main path ----------------------
+        zero_launches()
+        out4 = render(params, cam, bg, config=cfg4)
+        torch.cuda.synchronize()
+        render_launches = got = launches()
+        print(f"m1 render launches: {got}", flush=True)
+        check(got == {"A": 1, "B": 0, "C": 0, "D": 0, "E": 0},
+              f"m1 render launches {got}: expected A once")
+        sp = stack_views(params, cams, config=cfg4)[0]
+        tr = rc.tile_records(sp, ntx, nty, cfg4)
+        check(tuple(int(t) for t in reversed(tr.totals)) == counts4
+              and int(out4.n_duplicates) == counts4[1]
+              and int(out4.overflow) == 0,
+              f"the probe's counts {counts4} differ from the render's "
+              f"{[int(t) for t in reversed(tr.totals)]} or it overflows")
+        out1 = render(params, cam, bg, config=cfg1)
+        check(int(out1.overflow) == 0, "m1 bucket-1 render overflows")
+        check(bool(torch.isfinite(out4.render).all()), "m1 finite image")
+        bitwise = (torch.equal(out4.render, out1.render)
+                   and torch.equal(out4.invdepth, out1.invdepth))
+        d_img = max(float((out4.render - out1.render).abs().max()),
+                    float((out4.invdepth - out1.invdepth).abs().max()))
+        print(f"m1 render, bucket 4 vs bucket 1: max|d| {d_img:.3g} "
+              f"({'bitwise equal' if bitwise else 'not bitwise'}); records "
+              f"{int(out1.n_duplicates)} -> {int(out4.n_duplicates)}, "
+              f"shrink {int(out1.n_duplicates) / int(out4.n_duplicates):.3f}"
+              f"x; max bucket load {int(out4.max_tile_load)}; peak memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB",
+              flush=True)
+        check(d_img <= 1e-6, "m1 bucket-4 render differs from bucket 1")
+
+        # ---- 3. kernel A with the rect gate against its plain version ----
+        rects = tr.buckets.rects
+        got, walked = rc.composite_tiles(tr.records, tr.starts, tr.counts,
+                                         ntx, nty, rects)
+        (want, _), a_plain_ms = cuda_timed(lambda: rc.composite_tiles_plain(
+            tr.records, tr.starts, tr.counts, ntx, nty, rects))
+        ok, a_err = knife_edge_ok(got[:, :rc.IMG_ROWS],
+                                  want[:, :rc.IMG_ROWS])
+        print(f"kernel A (rect gate) vs plain ({tr.records.shape[0]} bucket "
+              f"records, {tr.counts.shape[0]} tiles): max|d| {a_err:.3g}",
+              flush=True)
+        check(ok, "kernel A with rects disagrees with its plain version")
+        del want
+
+    # ---- 4. train_step at bucket 4, kernel D's inputs captured ----------
+    shift = torch.tensor(np.random.default_rng(1).normal(
+        0, 0.2, (n_gauss, 1, 3)).astype(np.float32), device=dev)
+    with torch.no_grad():
+        dc = params.features_dc.detach().clone()
+        params.features_dc.add_(shift)
+        target = render(params, cam, bg, config=cfg4)
+        params.features_dc.copy_(dc)
+    cams = cams.replace(gt_image=target.render[None])
+    n_visible = int((out4.radii > 0).sum())
+    aux = GaussianAux.zeros(n_gauss, device=dev)
+    state = init_adam(params)
+    lg_kw = dict(opt=opt, active_sh_degree=3, use_exp=False)
+    ts_kw = dict(lg_kw, rcfg=cfg4, sparse_adam=False, update_stats=True)
+    with backward_inputs() as captured:
+        zero_launches()
+        params, aux, state, m = train_step(params, aux, state, cams, bg, 100,
+                                           1.0, 0.0, **ts_kw)
+        torch.cuda.synchronize()
+        got = launches()
+    print(f"m1 train_step launches: {got}", flush=True)
+    check(got == {"A": 1, "B": 2, "C": 0, "D": 1, "E": 0},
+          f"m1 train_step launches {got}: expected A once, B twice, D once")
+    step_launches = got
+    check(len(captured) == 1, "kernel D's inputs not captured once")
+    losses = [float(m["loss"])]
+    denom_sum = float(aux.denom.sum())
+    print(f"m1 train_step 1: loss {losses[0]:.6f}, psnr "
+          f"{float(m['psnr']):.4f}; denom sum {denom_sum:.0f}, visible "
+          f"Gaussians {n_visible}", flush=True)
+    check(int(m["overflow"]) == 0, "m1 train_step overflows")
+    check(denom_sum == n_visible, "denom did not rise by the visible count")
+    check(all(bool(torch.isfinite(getattr(params, g)).all())
+              for g in PARAM_GROUPS), "non-finite parameters after the step")
+    check(all(bool(torch.isfinite(getattr(aux, f)).all())
+              for f in ("max_radii2d", "xyz_gradient_accum", "denom")),
+          "non-finite densification statistics")
+
+    # ---- 5. kernel D against its plain version, and against itself -----
+    args = captured[0]
+    del captured
+    rec, buckets, _, _, gtiles, xstate, depth_grad = args
+    got = rc.composite_tiles_bucket_bwd(*args)
+    again = rc.composite_tiles_bucket_bwd(*args)
+    want, d_plain_ms = cuda_timed(lambda: rc.composite_tiles_bucket_bwd_plain(
+        *args[:5], depth_grad))
+    check(torch.equal(got, again), "kernel D is not bitwise repeatable")
+    check(bool(torch.isfinite(got).all()), "kernel D gave non-finite values")
+    d_err, d_rel = 0.0, []
+    for f in range(rc.NF):
+        scale = float(want[:, f].abs().max()) + 1e-30
+        ok, e = knife_edge_ok(got[:, f], want[:, f], scale)
+        check(ok, f"kernel D disagrees with its plain version, field {f}")
+        d_err = max(d_err, e)
+        d_rel.append(e / scale)
+    print(f"kernel D vs plain ({rec.shape[0]} records, "
+          f"{buckets.bcounts.shape[0]} buckets): max|d| {d_err:.3g}; "
+          f"max|d|/max|plain| per field "
+          f"{[float(f'{r:.3g}') for r in d_rel]}; two runs bitwise equal",
+          flush=True)
+    del got, again, want
+
+    # ---- 6. every group's gradient, bucket 4 (A + D) vs bucket 1 (A + C)
+    g4 = loss_and_grads(params, cams, bg, 0.0, rcfg=cfg4, **lg_kw)[3]
+    with backward_inputs() as captured:   # kernel C's inputs at bucket 1
+        g1 = loss_and_grads(params, cams, bg, 0.0, rcfg=cfg1, **lg_kw)[3]
+    c_args = captured[0]
+    grad_rel = {}
+    for k in PARAM_GROUPS:
+        scale = float(g1[k].abs().max())
+        e = float((g4[k] - g1[k]).abs().max())
+        check(bool(torch.isfinite(g4[k]).all()) and e <= 1e-5 * scale,
+              f"gradient of {k}, bucket 4 vs bucket 1: max|d| {e:.3g} of "
+              f"max {scale:.3g}")
+        grad_rel[k] = float(f"{e / (scale + 1e-30):.3g}")
+    print(f"m1 gradients, bucket 4 (A + D) vs bucket 1 (A + C): "
+          f"max|d|/max|bucket 1| {grad_rel}", flush=True)
+    del g4, g1
+
+    # ---- 7. J·v through kernel E, bucket 4 vs bucket 1 ------------------
+    gen = torch.Generator(dev).manual_seed(3)
+    v = {g: torch.randn(x.shape, device=dev, generator=gen) * 1e-2
+         for g, x in params.groups().items()}
+
+    def jv_image(cfg):
+        with torch.no_grad(), fwAD.dual_level():
+            duals = {g: fwAD.make_dual(x, v[g])
+                     for g, x in params.groups().items()}
+            out = render(G.with_groups(params, duals), cam, bg, config=cfg)
+            return fwAD.unpack_dual(out.render).tangent
+
+    e_before = rc.composite_tiles_jvp.launches
+    jv4, jv1 = jv_image(cfg4), jv_image(cfg1)
+    check(rc.composite_tiles_jvp.launches == e_before + 2, "J·v missed E")
+    scale = float(jv1.abs().max())
+    e = float((jv4 - jv1).abs().max())
+    print(f"m1 J·v through kernel E, bucket 4 vs bucket 1: max|d| {e:.3g} of "
+          f"max {scale:.3g} ({'bitwise equal' if torch.equal(jv4, jv1) else 'not bitwise'})",
+          flush=True)
+    check(e <= 1e-6 * scale, "J·v at bucket 4 differs from bucket 1")
+    del jv4, jv1
+
+    # ---- 8. the adjoint at bucket 4: E forward, D backward --------------
+    lm = LMParams()
+    lcfg = cfg4.replace(depth_grad=False)
+    ops = LMOperators(
+        lambda p: batch_residuals(p, cams, bg, config=lcfg,
+                                  disable_ssim=lm.disable_ssim,
+                                  active_sh_degree=3, alive=params.alive),
+        params, group_mask=G.param_group_mask(mask_xyz=lm.mask_xyz),
+        alive=params.alive)
+    u = ResidualState(*(torch.randn(ops.residual.l1.shape, device=dev,
+                                    generator=gen) for _ in range(2)))
+    d_before = rc.composite_tiles_bucket_bwd.launches
+    lhs = float(res_dot(ops.matvec(v), u))
+    rhs = float(G.vdot(v, ops.matvec_T(u)))
+    adj = abs(lhs - rhs) / max(abs(lhs), abs(rhs))
+    print(f"m1 adjoint at bucket 4 <Jv,u> {lhs:.8g} vs <v,J^T u> {rhs:.8g}: "
+          f"relative {adj:.3g} (D launched "
+          f"{rc.composite_tiles_bucket_bwd.launches - d_before})", flush=True)
+    check(rc.composite_tiles_bucket_bwd.launches > d_before,
+          "J^T u at bucket 4 missed kernel D")
+    check(adj <= 1e-4, "J·v (E) and J^T·u (D) are not adjoint at bucket 4")
+    del ops, u
+
+    # ---- the loss over 10 steps -----------------------------------------
+    for step in range(101, 100 + TRAIN_STEPS):
+        params, aux, state, m = train_step(params, aux, state, cams, bg,
+                                           step, 1.0, 0.0, **ts_kw)
+        losses.append(float(m["loss"]))
+    print(f"m1 loss over {TRAIN_STEPS} steps: "
+          f"{[round(x, 6) for x in losses]}", flush=True)
+    check(losses[-1] < losses[0], "the m1 loss did not fall over 10 steps")
+
+    # ---- timings ----------------------------------------------------------
+    def no_grad(fn):
+        def call():
+            with torch.no_grad():
+                return fn()
+        return call
+
+    def stages(cfg):
+        bk = cfg.bucket
+        with torch.no_grad():
+            spl = stack_views(params, cams, config=cfg)[0]
+            bsp = bucket_splats(spl, bk) if bk > 1 else spl
+            trc = rc.tile_records(spl, ntx, nty, cfg)
+        rects_c = None if trc.buckets is None else trc.buckets.rects
+
+        def forward():
+            m2d = torch.zeros(n_gauss, 2, device=dev, requires_grad=True)
+            return scalar_training_loss(params, cams, bg, config=cfg,
+                                        lambda_dssim=opt.lambda_dssim,
+                                        active_sh_degree=3,
+                                        mean2d_offset=m2d)[0]
+
+        t = {"render (no_grad)": cuda_ms(no_grad(
+                 lambda: render(params, cam, bg, config=cfg)), 3),
+             "front end": cuda_ms(no_grad(lambda: duplicate_sort_ranges(
+                 bsp, _cdiv(ntx, bk), nty // bk, cfg.dup_capacity,
+                 view_rows=nty // bk, cull=True,
+                 live_capacity=cfg.live_capacity, tile_px=16 * bk)), 3),
+             "front end + gather": cuda_ms(no_grad(
+                 lambda: rc.tile_records(spl, ntx, nty, cfg)), 3),
+             "kernel A": cuda_ms(lambda: rc.composite_tiles(
+                 trc.records, trc.starts, trc.counts, ntx, nty, rects_c), 5),
+             "forward+loss": cuda_ms(forward, 3),
+             "forward+loss+backward": cuda_ms(lambda: loss_and_grads(
+                 params, cams, bg, 0.0, rcfg=cfg, **lg_kw), 3)}
+        t["backward"] = t["forward+loss+backward"] - t["forward+loss"]
+        return t
+
+    def step_at(cfg):
+        return lambda: train_step(params, aux, state, cams, bg, 200, 1.0,
+                                  0.0, **dict(ts_kw, rcfg=cfg))
+
+    t4 = stages(cfg4)
+    t1 = stages(cfg1)
+    # the two steps in turns, so the host's drift falls on both alike
+    step_runs = {4: [], 1: []}
+    for rep in range(6):   # the first round warms up
+        for bk, cfg in ((4, cfg4), (1, cfg1)):
+            ms = cuda_times(step_at(cfg), 1, warmup=0)
+            step_runs[bk] += ms if rep else []
+    t4["train_step"] = statistics.median(step_runs[4])
+    t1["train_step"] = statistics.median(step_runs[1])
+    t4["kernel D"] = cuda_ms(lambda: rc.composite_tiles_bucket_bwd(*args), 5)
+    t1["kernel C"] = cuda_ms(lambda: rc.composite_tiles_bwd(*c_args), 5)
+    busy = {bk: device_busy(step_at(cfg)) for bk, cfg in ((4, cfg4),
+                                                          (1, cfg1))}
+    top_ops = {bk: host_top_ops(step_at(cfg)) for bk, cfg in ((4, cfg4),
+                                                              (1, cfg1))}
+
+    n_walked = int(walked.long().sum())
+    a_work, a_bound = a_cost(tr.records, tr.starts, tr.counts, ntx, nty,
+                             walked, rects)
+    bid = rc.bucket_of_tile(ntx, nty, nty, buckets.bucket, dev)
+    d_work, d_records, d_fp32, d_mufu, d_bytes, d_times, d_bound, d_by = \
+        c_cost(rec, buckets.bstarts[bid], buckets.bcounts[bid], ntx, nty,
+               xstate, buckets)
+    for name, t in (("bucket 4", t4), ("bucket 1", t1)):
+        print(f"{tag} m1 {name} (ms, medians): "
+              + ", ".join(f"{k} {x:.3f}" for k, x in t.items()), flush=True)
+    print(f"{tag} m1 train_step runs in turns (ms): bucket 4 "
+          f"{[round(x, 3) for x in step_runs[4]]}, bucket 1 "
+          f"{[round(x, 3) for x in step_runs[1]]}", flush=True)
+    for bk, (n_kern, busy_ms, wall_ms) in busy.items():
+        print(f"{tag} m1 train_step at bucket {bk} profiled once: {n_kern} "
+              f"CUDA kernels, device busy {busy_ms:.3f} ms of {wall_ms:.3f} "
+              f"ms wall ({busy_ms / wall_ms:.3f}; the profiler adds host "
+              f"time); top ops by host self time (ms, calls): "
+              f"{top_ops[bk]}", flush=True)
+    print(f"{tag} m1 kernel A (bucket 4): {tr.records.shape[0]} records in "
+          f"segments, {n_walked} walked by the tiles; pairs [evaluated, past "
+          f"power gate, past 1/255 gate, accumulated, rect-gated] {a_work}; "
+          f"{t4['kernel A']:.3f} ms vs bound {a_bound:.4f} ms; plain "
+          f"{a_plain_ms:.3f} ms", flush=True)
+    print(f"{tag} m1 kernel D pairs [walked, evaluated, past power gate, "
+          f"contributing, rect-gated] {d_work}, {d_records} records walked "
+          f"over the member tiles ({rec.shape[0]} in segments): {d_fp32} fp32"
+          f" + {d_mufu} MUFU lane instructions, {d_bytes} B; bound ms "
+          + ", ".join(f"{k} {x:.4f}" for k, x in d_times.items())
+          + f"; kernel D {t4['kernel D']:.3f} ms, plain {d_plain_ms:.3f} ms",
+          flush=True)
+    print(f"m1 peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
+          f" GiB", flush=True)
+
+    for entry, key in zip(kernels, ("A", "B", "C", "E")):
+        entry["launches_by_path"]["train_m1_bucket4"] = step_launches[key]
+        entry["launches"] += step_launches[key]
+    kernels[0]["launches_by_path"]["render_m1_bucket4"] = \
+        render_launches["A"]
+    kernels[0]["launches"] += render_launches["A"]
+    kernels[0]["ms_m1_bucket4"] = t4["kernel A"]
+    kernels[0]["bound_ms_m1_bucket4"] = a_bound
+    kernels[0]["max_abs_err_m1_bucket4"] = a_err
+    return {"name": "composite_bucket_bwd", "route": "cuda",
+            "source": "gslm_tpu_torch/csrc/composite_bucket_bwd.cu",
+            "replaces": "gslm_tpu/ops/rasterize_pallas.py:928",
+            "launches": step_launches["D"],
+            "launches_by_path": {"serve": 0, "train_step": 0,
+                                 "lm_outer_step": 0,
+                                 "train_m1_bucket4": step_launches["D"]},
+            "max_abs_err": d_err, "ms": t4["kernel D"],
+            "plain_ms": d_plain_ms, "bound_ms": d_bound, "bound_by": d_by,
+            "library_ms": None}
 
 
 if __name__ == "__main__":

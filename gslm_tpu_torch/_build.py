@@ -31,12 +31,14 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 # C signatures: every pointer and the stream are void*, counts are int
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "composite_fwd": {"composite_fwd": [_VP, _VP, _VP, _I, _I, _I, _VP, _VP,
-                                        _VP]},
+    "composite_fwd": {"composite_fwd": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP,
+                                        _VP, _VP]},
     "composite_bwd": {"composite_bwd": [_VP, _VP, _VP, _I, _I, _I, _VP, _VP,
                                         _I, _VP, _VP]},
-    "composite_jvp": {"composite_jvp": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP,
-                                        _VP, _VP]},
+    "composite_bucket_bwd": {"composite_bucket_bwd": [
+        _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP, _VP, _I, _VP, _VP]},
+    "composite_jvp": {"composite_jvp": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I,
+                                        _VP, _VP, _VP]},
     "blur": {"blur_same": [_VP, _VP, _I, _I, _I, _VP, _I, _VP]},
 }
 

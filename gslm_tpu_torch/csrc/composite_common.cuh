@@ -1,9 +1,10 @@
-// Shared by kernel A (composite_fwd.cu), kernel C (composite_bwd.cu) and
-// kernel E (composite_jvp.cu): the record layout, the compositing constants
-// and the per-pair alpha arithmetic. All three evaluate a (record, pixel)
-// pair through the same inline functions, so the backward's and the
-// tangent's gates (power <= 0, alpha >= 1/255) see the very bits the
-// forward saw.
+// Shared by kernel A (composite_fwd.cu), kernel C (composite_bwd.cu),
+// kernel D (composite_bucket_bwd.cu) and kernel E (composite_jvp.cu): the
+// record layout, the compositing constants, the per-pair alpha arithmetic
+// and bucket mode's rect gate. All four evaluate a (record, pixel) pair
+// through the same inline functions, so the backward's and the tangent's
+// gates (rect, power <= 0, alpha >= 1/255) see the very bits the forward
+// saw.
 #pragma once
 
 namespace gslm {
@@ -25,6 +26,23 @@ __device__ __forceinline__ void tile_pixel(int t, int lane, int ntx,
                                            float& py) {
   px = (float)((t % ntx) * TILE + lane % TILE);
   py = (float)(((t / ntx) % view_rows) * TILE + lane / TILE);
+}
+
+// Pixel origin of tile ``t`` (tile rows wrap modulo view_rows, so y is
+// view-local), the point bucket mode's rect gate tests.
+__device__ __forceinline__ void tile_origin(int t, int ntx, int view_rows,
+                                            int& txc, int& tyc) {
+  txc = (t % ntx) * TILE;
+  tyc = ((t / ntx) % view_rows) * TILE;
+}
+
+// Bucket mode's rect gate: a record of a bucket segment counts for the tile
+// whose pixel origin is (txc, tyc) only inside the record's own tile rect
+// q = [x0, x1) x [y0, y1) in pixels, y view-local (the 4 int32 of its row of
+// ``rects``). It is uniform across a tile's block: evaluated once per staged
+// record, it skips the record before its power is computed.
+__device__ __forceinline__ bool rect_gate(const int* q, int txc, int tyc) {
+  return txc >= q[0] && txc < q[1] && tyc >= q[2] && tyc < q[3];
 }
 
 // power = -0.5 (c0 dx^2 + c2 dy^2) - c1 dx dy of record r at (px, py).

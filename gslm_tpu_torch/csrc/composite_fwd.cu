@@ -33,6 +33,14 @@
 // same record: a broadcast, no bank conflicts), and the block stops at the
 // first chunk boundary where every pixel has exited (__syncthreads_count),
 // so the walk ends early on deep segments as the CUDA reference's does.
+//
+// Bucket mode (a non-null ``rects``, the RECT instantiation): a tile walks
+// its parent bucket's segment, and a record counts for it only inside the
+// record's own tile rect (rect_gate, composite_common.cuh). The block
+// evaluates the gate once per record as it stages the chunk and every
+// thread skips a gated record before its power; the exit position is in
+// bucket-segment coordinates. RECT = false compiles the bucket-1 loop
+// unchanged.
 #include <cuda_runtime.h>
 
 #include "composite_common.cuh"
@@ -41,16 +49,21 @@ namespace {
 
 using namespace gslm;
 
+template <bool RECT>
 __global__ void __launch_bounds__(PIX)
 composite_fwd_kernel(const float* __restrict__ records,
+                     const int* __restrict__ rects,
                      const int* __restrict__ starts,
                      const int* __restrict__ counts, int ntx, int view_rows,
                      float* __restrict__ out, int* __restrict__ walked) {
   __shared__ float rec[PIX * NF];
+  __shared__ bool gate[RECT ? PIX : 1];
   const int t = blockIdx.x;
   const int lane = threadIdx.x;
   float px, py;
   tile_pixel(t, lane, ntx, view_rows, px, py);
+  int txc, tyc;
+  tile_origin(t, ntx, view_rows, txc, tyc);
   const int start = starts[t];
   const int count = counts[t];
 
@@ -66,9 +79,14 @@ composite_fwd_kernel(const float* __restrict__ records,
     const int n = min(PIX, count - base);
     const float* src = records + (size_t)(start + base) * NF;
     for (int j = lane; j < n * NF; j += PIX) rec[j] = src[j];
+    if (RECT && lane < n) {
+      gate[lane] = rect_gate(rects + (size_t)(start + base + lane) * 4, txc,
+                             tyc);
+    }
     __syncthreads();
     n_walked += n;
     for (int i = 0; i < n && !done; ++i) {
+      if (RECT && !gate[i]) continue;
       const float* r = rec + i * NF;
       Pair p;
       if (!pair_alpha(r, px, py, p)) continue;
@@ -105,15 +123,21 @@ composite_fwd_kernel(const float* __restrict__ records,
 
 }  // namespace
 
-// records (L, 10) f32, starts/counts (ntiles,) i32 → out (ntiles, 7, 256)
-// f32, walked (ntiles,) i32. Launches on ``stream``; returns cudaGetLastError.
-extern "C" int composite_fwd(const float* records, const int* starts,
-                             const int* counts, int ntiles, int ntx,
-                             int view_rows, float* out, int* walked,
+// records (L, 10) f32, rects (L, 4) i32 or null (bucket 1), starts/counts
+// (ntiles,) i32 → out (ntiles, 7, 256) f32, walked (ntiles,) i32. Launches
+// on ``stream``; returns cudaGetLastError.
+extern "C" int composite_fwd(const float* records, const int* rects,
+                             const int* starts, const int* counts, int ntiles,
+                             int ntx, int view_rows, float* out, int* walked,
                              cudaStream_t stream) {
   if (ntiles > 0) {
-    composite_fwd_kernel<<<ntiles, PIX, 0, stream>>>(
-        records, starts, counts, ntx, view_rows, out, walked);
+    if (rects) {
+      composite_fwd_kernel<true><<<ntiles, PIX, 0, stream>>>(
+          records, rects, starts, counts, ntx, view_rows, out, walked);
+    } else {
+      composite_fwd_kernel<false><<<ntiles, PIX, 0, stream>>>(
+          records, rects, starts, counts, ntx, view_rows, out, walked);
+    }
   }
   return (int)cudaGetLastError();
 }

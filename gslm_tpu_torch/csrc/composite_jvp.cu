@@ -33,6 +33,9 @@
 // copies, every thread composites the chunk in order (all threads read the
 // same record: a broadcast), and the block stops at the first chunk
 // boundary where every pixel has exited.
+//
+// Bucket mode (a non-null ``rects``): kernel A's rect gate, evaluated once
+// per staged record; RECT = false compiles the bucket-1 loop unchanged.
 #include <cuda_runtime.h>
 
 #include "composite_common.cuh"
@@ -41,18 +44,23 @@ namespace {
 
 using namespace gslm;
 
+template <bool RECT>
 __global__ void __launch_bounds__(PIX)
 composite_jvp_kernel(const float* __restrict__ records,
                      const float* __restrict__ tangents,
+                     const int* __restrict__ rects,
                      const int* __restrict__ starts,
                      const int* __restrict__ counts, int ntx, int view_rows,
                      float* __restrict__ out, float* __restrict__ out_dot) {
   __shared__ float rec[PIX * NF];
   __shared__ float tng[PIX * NF];
+  __shared__ bool gate[RECT ? PIX : 1];
   const int t = blockIdx.x;
   const int lane = threadIdx.x;
   float px, py;
   tile_pixel(t, lane, ntx, view_rows, px, py);
+  int txc, tyc;
+  tile_origin(t, ntx, view_rows, txc, tyc);
   const int start = starts[t];
   const int count = counts[t];
 
@@ -72,8 +80,13 @@ composite_jvp_kernel(const float* __restrict__ records,
       rec[j] = records[off + j];
       tng[j] = tangents[off + j];
     }
+    if (RECT && lane < n) {
+      gate[lane] = rect_gate(rects + (size_t)(start + base + lane) * 4, txc,
+                             tyc);
+    }
     __syncthreads();
     for (int i = 0; i < n && !done; ++i) {
+      if (RECT && !gate[i]) continue;
       const float* r = rec + i * NF;
       Pair p;
       if (!pair_alpha(r, px, py, p)) continue;
@@ -133,16 +146,25 @@ composite_jvp_kernel(const float* __restrict__ records,
 
 }  // namespace
 
-// records, tangents (L, 10) f32, starts/counts (ntiles,) i32 → out
-// (ntiles, 7, 256) f32 (kernel A's rows), out_dot (ntiles, 5, 256) f32.
-// Launches on ``stream``; returns cudaGetLastError.
+// records, tangents (L, 10) f32, rects (L, 4) i32 or null (bucket 1),
+// starts/counts (ntiles,) i32 → out (ntiles, 7, 256) f32 (kernel A's rows),
+// out_dot (ntiles, 5, 256) f32. Launches on ``stream``; returns
+// cudaGetLastError.
 extern "C" int composite_jvp(const float* records, const float* tangents,
-                             const int* starts, const int* counts, int ntiles,
-                             int ntx, int view_rows, float* out,
-                             float* out_dot, cudaStream_t stream) {
+                             const int* rects, const int* starts,
+                             const int* counts, int ntiles, int ntx,
+                             int view_rows, float* out, float* out_dot,
+                             cudaStream_t stream) {
   if (ntiles > 0) {
-    composite_jvp_kernel<<<ntiles, PIX, 0, stream>>>(
-        records, tangents, starts, counts, ntx, view_rows, out, out_dot);
+    if (rects) {
+      composite_jvp_kernel<true><<<ntiles, PIX, 0, stream>>>(
+          records, tangents, rects, starts, counts, ntx, view_rows, out,
+          out_dot);
+    } else {
+      composite_jvp_kernel<false><<<ntiles, PIX, 0, stream>>>(
+          records, tangents, rects, starts, counts, ntx, view_rows, out,
+          out_dot);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -43,8 +43,10 @@ class RasterConfig(Struct):
     ``depth_grad``: the backward compositor (kernel C) propagates the
     invdepth image's cotangent into the splats' geometry and invdepth;
     False drops those terms (rasterize_pallas.py:572-573,628-630).
-    ``bucket``: kept for the bucket-binning slice; the port renders with
-    bucket = 1.
+    ``bucket``: 1, 2 or 4. Above 1 stages 1-3 run on a bucket×bucket-tile
+    super-grid and every tile walks its parent bucket's segment under a
+    per-tile rect gate (``rasterize_cuda.tile_records``); capacities then
+    count bucket records.
     ``pack``, ``chunk_rows``, ``tile_chunk`` and ``mp_route_capacity``
     configure the TPU kernels and XLA stage 4 only and are unused by the
     port (the CUDA compositor walks whole segments).
@@ -68,6 +70,8 @@ class RasterConfig(Struct):
     def __post_init__(self):
         if self.impl not in IMPLS:
             raise ValueError(f"impl={self.impl!r}: must be one of {IMPLS}")
+        if self.bucket not in (1, 2, 4):
+            raise ValueError(f"bucket={self.bucket}: must be 1, 2 or 4")
         for f in UNUSED_FIELDS:
             if getattr(self, f.name) != f.default:
                 raise NotImplementedError(
@@ -88,8 +92,7 @@ class RasterConfig(Struct):
 
 UNUSED_FIELDS = tuple(
     f for f in dataclasses.fields(RasterConfig)
-    if f.name in ("tile_chunk", "pack", "mp_route_capacity", "chunk_rows",
-                  "bucket"))
+    if f.name in ("tile_chunk", "pack", "mp_route_capacity", "chunk_rows"))
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -102,14 +105,31 @@ def _lower_bound(keys: torch.Tensor, bounds: torch.Tensor, n: int):
     return torch.searchsorted(keys[:n].contiguous(), bounds, right=False)
 
 
-def _cell_masks(splats: Splats2D, view_rows: int, cwb: int):
+def bucket_splats(splats: Splats2D, bucket: int) -> Splats2D:
+    """The splats with their tile rects coarsened to bucket×bucket-tile
+    units (floor of the min corner, ceiling of the max corner) and
+    ``tile_count`` the buckets each visible splat touches."""
+    bx0 = torch.div(splats.rect_min[:, 0], bucket, rounding_mode="floor")
+    by0 = torch.div(splats.rect_min[:, 1], bucket, rounding_mode="floor")
+    bx1 = -torch.div(-splats.rect_max[:, 0], bucket, rounding_mode="floor")
+    by1 = -torch.div(-splats.rect_max[:, 1], bucket, rounding_mode="floor")
+    count = torch.where(splats.tile_count > 0, (bx1 - bx0) * (by1 - by0), 0)
+    return splats.replace(rect_min=torch.stack([bx0, by0], dim=-1),
+                          rect_max=torch.stack([bx1, by1], dim=-1),
+                          tile_count=count.to(splats.tile_count.dtype))
+
+
+def _cell_masks(splats: Splats2D, view_rows: int, cwb: int,
+                tile_px: int = TILE):
     """Per-Gaussian 8×8-cell survival masks for exact ellipse–tile culling.
 
-    Each rect is cut into an 8×8 grid of cells of cw×ch whole tiles
-    (cw = ceil(w/8)); a cell survives iff the exact minimum of the conic
-    quadratic over its pixel rectangle lies within the alpha >= 1/255 level
-    set. Returns the three packed int32 mask words (22/22/20 bits), the
-    packed cell size ``(ch << cwb) | cw`` and the surviving-tile count."""
+    Each rect is cut into an 8×8 grid of cells of cw×ch whole grid units
+    (cw = ceil(w/8)); a unit is ``tile_px`` pixels wide (TILE for tiles,
+    TILE * bucket for bucket rects). A cell survives iff the exact minimum
+    of the conic quadratic over its pixel rectangle lies within the alpha
+    >= 1/255 level set. Returns the three packed int32 mask words
+    (22/22/20 bits), the packed cell size ``(ch << cwb) | cw`` and the
+    surviving-tile count."""
     x0r, y0r = splats.rect_min[:, 0], splats.rect_min[:, 1]
     x1r, y1r = splats.rect_max[:, 0], splats.rect_max[:, 1]
     wr = torch.clamp(x1r - x0r, min=1)
@@ -123,7 +143,7 @@ def _cell_masks(splats: Splats2D, view_rows: int, cwb: int):
     qb = splats.conic[:, 1]
     qc = torch.clamp(splats.conic[:, 2], min=1e-12)
     s2 = 2.0 * torch.log(torch.clamp(splats.opacity * 255.0, min=1e-12))
-    ftile = float(TILE)
+    ftile = float(tile_px)
     words = [torch.zeros_like(x0r) for _ in range(3)]
     nlive = torch.zeros_like(x0r)
     for b in range(64):
@@ -151,8 +171,9 @@ def _cell_masks(splats: Splats2D, view_rows: int, cwb: int):
 @torch.no_grad()
 def duplicate_sort_ranges(splats: Splats2D, ntx: int, nty: int, L: int, *,
                           view_rows: int | None = None, cull: bool = False,
-                          live_capacity: int = 0):
-    """Stages 1-3 of the tile pipeline.
+                          live_capacity: int = 0, tile_px: int = TILE):
+    """Stages 1-3 of the tile pipeline (``tile_px``: the pixel size of one
+    grid unit, as in ``_cell_masks``).
 
     Returns ``(order (P,), rank (n,), starts (ntiles,), ends (ntiles,),
     (total_live, total_aabb))``: ``order`` is the stable depth-ascending
@@ -191,7 +212,8 @@ def duplicate_sort_ranges(splats: Splats2D, ntx: int, nty: int, L: int, *,
 
     if cull:
         cwb = max(_cdiv(ntx, 8).bit_length(), 1)
-        m0, m1, m2, cwch, nlive = _cell_masks(splats, view_rows, cwb)
+        m0, m1, m2, cwch, nlive = _cell_masks(splats, view_rows, cwb,
+                                              tile_px)
         total_live = nlive.sum()
         m0, m1, m2, cwch = (v[order].long()[rank_e] for v in (m0, m1, m2, cwch))
         cw_e = torch.clamp(cwch & ((1 << cwb) - 1), min=1)

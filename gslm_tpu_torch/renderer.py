@@ -1,8 +1,10 @@
 """High-level render API (gslm_tpu/renderer.py): ``render`` one view,
 ``batch_render`` a camera batch as one raster problem.
 
-Both entry points are differentiable in every parameter group (kernel C
-is the compositor's VJP); serving callers wrap them in ``torch.no_grad()``.
+Both entry points are differentiable in every parameter group (kernel C,
+or kernel D with bucket binning, is the compositor's VJP); serving callers
+wrap them in ``torch.no_grad()``. ``config.bucket`` > 1 needs the view's
+tile rows divisible by it, or they raise ``ValueError``.
 ``alive=None`` masks with ``params.alive`` (the JAX package takes the mask
 as an argument; dead slots are transparent either way).
 """
@@ -19,7 +21,7 @@ from gslm_tpu_torch.ops.projection import TILE, Splats2D, preprocess
 from gslm_tpu_torch.ops.rasterize_cuda import rasterize_cuda
 from gslm_tpu_torch.ops.rasterize_ref import rasterize_ref
 from gslm_tpu_torch.ops.rasterize_tiled import (RasterConfig, _cdiv,
-                                                _cell_masks)
+                                                _cell_masks, bucket_splats)
 from gslm_tpu_torch.struct import Struct
 
 
@@ -57,6 +59,16 @@ def apply_exposure(image: torch.Tensor, exposure: torch.Tensor) -> torch.Tensor:
     return out + exposure[..., :3, 3, None, None]
 
 
+def _check_bucket(config: RasterConfig, height: int) -> int:
+    """The view's tile rows; bucket binning needs them divisible by
+    ``config.bucket`` (bucket rows must not straddle stacked views)."""
+    nty = _cdiv(height, TILE)
+    if nty % config.bucket:
+        raise ValueError(f"bucket={config.bucket} needs the view's tile rows "
+                         f"({nty}) divisible by it")
+    return nty
+
+
 def _pre(params, camera, config, active_sh_degree, scaling_modifier, alive,
          mean2d_offset):
     return preprocess(params, camera, active_sh_degree=active_sh_degree,
@@ -87,6 +99,8 @@ def render(params: GaussianParams, camera: Camera, bg: torch.Tensor, *,
     or "ref". ``mean2d_offset``: (P, 2) gradient carrier of the
     densification statistics (``preprocess``)."""
     impl = resolve_impl(config.impl if impl is None else impl)
+    if impl == "cuda":
+        _check_bucket(config, camera.height)
     if active_sh_degree is None:
         active_sh_degree = params.sh_degree
     splats = _pre(params, camera, config, active_sh_degree, scaling_modifier,
@@ -167,6 +181,7 @@ def batch_render(params: GaussianParams, cameras: CameraBatch,
 
     H, W = cameras.height, cameras.width
     B = cameras.batch_size
+    _check_bucket(config, H)
     splats, radii, nty = stack_views(
         params, cameras, config=config, active_sh_degree=active_sh_degree,
         scaling_modifier=scaling_modifier, alive=alive,
@@ -188,7 +203,9 @@ def overflow_probe(params: GaussianParams, cameras: CameraBatch, *,
     """Would rendering this camera batch overflow ``config``'s record
     capacities? Runs the per-Gaussian preprocess of every view and, with
     culling, the cull cell masks (all views in one pass over the stacked
-    splats); no duplication, sort or compositing.
+    splats); no duplication, sort or compositing. With ``config.bucket`` >
+    1 the counts are bucket records, as the bucket-binned raster counts
+    them (rects coarsened to buckets, cull cells of bucket pixels).
 
     ``per_view=False``: dict(n_aabb, n_live, overflow) summed over the
     views, overflow as the rasterizer flags it (live total over the
@@ -201,13 +218,17 @@ def overflow_probe(params: GaussianParams, cameras: CameraBatch, *,
         raise NotImplementedError(
             "n_model > 1: the model-parallel raster is not ported yet")
     B, P = cameras.batch_size, params.capacity
-    splats, _, nty = stack_views(params, cameras, config=config,
-                                 active_sh_degree=active_sh_degree,
-                                 alive=alive)
+    bk = config.bucket
+    nty = _check_bucket(config, cameras.height)
+    splats = stack_views(params, cameras, config=config,
+                         active_sh_degree=active_sh_degree, alive=alive)[0]
+    if bk > 1:
+        splats = bucket_splats(splats, bk)
     n_aabb = splats.tile_count.reshape(B, P).sum(dim=1)
     if config.cull:
-        cwb = max(_cdiv(_cdiv(cameras.width, TILE), 8).bit_length(), 1)
-        nlive = _cell_masks(splats, nty, cwb)[-1]
+        cwb = max(_cdiv(_cdiv(_cdiv(cameras.width, TILE), bk), 8)
+                  .bit_length(), 1)
+        nlive = _cell_masks(splats, nty // bk, cwb, TILE * bk)[-1]
         n_live = nlive.reshape(B, P).sum(dim=1)
     else:
         n_live = n_aabb

@@ -108,7 +108,7 @@ def test_matches_dense_reference(random_scene):
 def test_plain_composite_chunking_is_exact(random_scene):
     """The plain version's result does not depend on how tiles are
     chunked (what keeps batched renders bitwise equal to single views)."""
-    records, starts, counts, _ = tile_records(
+    records, starts, counts, *_ = tile_records(
         _to_port(random_scene), 4, 3, RasterConfig(dup_capacity=CAP))
     a, walked = composite_tiles(records, starts, counts, 4, 3)
     b, _ = composite_tiles_plain(records, starts, counts, 4, 3, max_elems=1)

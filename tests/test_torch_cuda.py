@@ -14,7 +14,12 @@ scene where pixels exit: its primal against kernel A's (the same pair
 arithmetic: 1e-6, bit for bit expected), its tangent at the knife-edge
 bound per row relative to max |plain|, and bit for bit against itself;
 one LM outer step through kernels A, C and E: the launch counts and finite
-results."""
+results. Bucket mode (buckets of 2 and 4 tiles on a 13-column grid, so the
+last bucket column has missing member tiles): kernels A and E with the rect
+gate against their plain versions at the bounds above, kernel A's bucket
+composite equal to its bucket-1 composite, kernel D against its plain
+version per record field (kernel C's bound) and bit for bit against
+itself."""
 
 import numpy as np
 import pytest
@@ -26,6 +31,8 @@ from gslm_tpu_torch.models.gaussians import PARAM_GROUPS, GaussianAux
 from gslm_tpu_torch.ops.blur_cuda import blur, blur_plain, blur_same
 from gslm_tpu_torch.ops.projection import preprocess
 from gslm_tpu_torch.ops.rasterize_cuda import (composite_tiles,
+                                               composite_tiles_bucket_bwd,
+                                               composite_tiles_bucket_bwd_plain,
                                                composite_tiles_bwd,
                                                composite_tiles_bwd_plain,
                                                composite_tiles_jvp,
@@ -189,7 +196,7 @@ def _jvp_inputs(cuda):
     cam = ring_camera_batch(1, 120, 200, device=cuda).view(0)
     with torch.no_grad():
         splats = preprocess(params, cam, active_sh_degree=3)
-        records, starts, counts, _ = tile_records(splats, 13, 8,
+        records, starts, counts, *_ = tile_records(splats, 13, 8,
                                                   RasterConfig())
     tangents = torch.randn(records.shape, device=cuda,
                            generator=torch.Generator(cuda).manual_seed(4))
@@ -263,3 +270,68 @@ def test_lm_outer_step_on_card(cuda):
     assert all(bool(torch.isfinite(getattr(new, g)).all())
                for g in PARAM_GROUPS)
     assert np.isfinite(float(info["best_val_loss"]))
+
+
+def _bucket_inputs(cuda, bucket):
+    """The small scene's bucket records, kernel A's bucket composite and a
+    seeded image cotangent: 13x8 tiles, buckets of ``bucket`` tiles."""
+    params = random_gaussians(np.random.default_rng(0), n=4096, spread=1.5,
+                              device=cuda)
+    cam = ring_camera_batch(1, 120, 200, device=cuda).view(0)
+    with torch.no_grad():
+        splats = preprocess(params, cam, active_sh_degree=3)
+        tr = tile_records(splats, 13, 8, RasterConfig(bucket=bucket))
+    tiles, walked = composite_tiles(tr.records, tr.starts, tr.counts, 13, 8,
+                                    tr.buckets.rects)
+    gtiles = torch.randn(13 * 8, 5, 256, device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(1))
+    return tr, tiles, walked, gtiles
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucket", [2, 4])
+def test_bucket_composite_kernels_match_plain(cuda, bucket):
+    tr, tiles, walked, _ = _bucket_inputs(cuda, bucket)
+    rects = tr.buckets.rects
+    want, _ = composite_tiles_plain(tr.records, tr.starts, tr.counts, 13, 8,
+                                    rects)
+    records, starts, counts = _small_scene(cuda)
+    base, _ = composite_tiles(records, starts, counts, 13, 8)
+    tangents = torch.randn(tr.records.shape, device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(4))
+    got_e, dot_e = composite_tiles_jvp(tr.records, tangents, tr.starts,
+                                       tr.counts, 13, 8, rects)
+    want_e, want_dot = composite_tiles_jvp_plain(
+        tr.records, tangents, tr.starts, tr.counts, 13, 8, rects)
+    torch.cuda.synchronize()
+    assert _knife_edge(tiles[:, :5], want[:, :5])
+    assert bool((walked <= tr.counts).all())
+    # the rect gate leaves each tile its bucket-1 records, in order
+    assert torch.equal(tiles[:, :6], base[:, :6])
+    assert torch.equal(got_e, tiles)
+    for row in range(5):
+        scale = float(want_dot[:, row].abs().max()) + 1e-12
+        assert _knife_edge(dot_e[:, row], want_dot[:, row], scale), row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucket,depth_grad", [(2, True), (4, True),
+                                               (4, False)])
+def test_bucket_bwd_kernel_matches_plain(cuda, bucket, depth_grad):
+    tr, tiles, _, gtiles = _bucket_inputs(cuda, bucket)
+    before = composite_tiles_bucket_bwd.launches
+    got = composite_tiles_bucket_bwd(tr.records, tr.buckets, 13, 8, gtiles,
+                                     tiles[:, 5:], depth_grad)
+    again = composite_tiles_bucket_bwd(tr.records, tr.buckets, 13, 8, gtiles,
+                                       tiles[:, 5:], depth_grad)
+    want = composite_tiles_bucket_bwd_plain(tr.records, tr.buckets, 13, 8,
+                                            gtiles, depth_grad)
+    torch.cuda.synchronize()
+    assert composite_tiles_bucket_bwd.launches == before + 2
+    assert torch.equal(got, again)
+    assert bool(torch.isfinite(got).all())
+    for f in range(10):
+        scale = float(want[:, f].abs().max()) + 1e-12
+        assert _knife_edge(got[:, f], want[:, f], scale), f
+    if not depth_grad:
+        assert float(got[:, 9].abs().max()) == 0.0

@@ -178,7 +178,7 @@ def test_reverse_walk_matches_plain_backward(kind):
     every row past a tile's exits is exactly zero in both."""
     js, h, w = _scene(kind)
     ntx, nty = -(-w // 16), -(-h // 16)
-    records, starts, counts, _ = tile_records(
+    records, starts, counts, *_ = tile_records(
         Splats2D(**_to_port(js)), ntx, nty, RasterConfig(dup_capacity=CAP))
     tiles, _ = composite_tiles_plain(records, starts, counts, ntx, nty)
     if kind == "stack":   # the stacked splats freeze pixels: exits taken
@@ -206,7 +206,7 @@ def test_plain_backward_chunking_changes_only_rounding():
     the default chunking to rounding (atol 1e-6·scale; autograd's sums run
     over other padded shapes, so not bit for bit)."""
     js, h, w = _scene("random")
-    records, starts, counts, _ = tile_records(
+    records, starts, counts, *_ = tile_records(
         Splats2D(**_to_port(js)), 4, 3, RasterConfig(dup_capacity=CAP))
     gt = torch.tensor(np.random.default_rng(3).normal(
         0, 1, (counts.shape[0], 5, 256)).astype(np.float32))

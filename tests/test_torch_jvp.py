@@ -180,7 +180,7 @@ def test_forward_walk_matches_plain_jvp(kind):
     version's primal is ``composite_tiles_plain``'s, bit for bit."""
     js, h, w = _scene(kind)
     ntx, nty = -(-w // 16), -(-h // 16)
-    records, starts, counts, _ = tile_records(
+    records, starts, counts, *_ = tile_records(
         Splats2D(**_to_port(js)), ntx, nty, RasterConfig(dup_capacity=CAP))
     tng = torch.tensor(np.random.default_rng(5).normal(
         0, 1, tuple(records.shape)).astype(np.float32))
@@ -232,7 +232,7 @@ def test_adjoint_consistency(disable_ssim):
 def test_dual_records_that_record_autograd_raise():
     from gslm_tpu_torch.ops.rasterize_cuda import composite_image_rows
     js, h, w = _scene("random")
-    records, starts, counts, _ = tile_records(
+    records, starts, counts, *_ = tile_records(
         Splats2D(**_to_port(js)), 4, 3, RasterConfig(dup_capacity=CAP))
     leaf = records.detach().requires_grad_(True)
     with fwAD.dual_level():

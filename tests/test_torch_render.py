@@ -86,7 +86,7 @@ def test_ref_impl_and_unported_impls(scene):
 
 @pytest.mark.parametrize("field,value", [
     ("tile_chunk", 64), ("pack", 8), ("mp_route_capacity", 1024),
-    ("chunk_rows", 16), ("bucket", 2)])
+    ("chunk_rows", 16)])
 def test_raster_config_rejects_unread_fields(field, value):
     """A field the port does not read yet raises instead of being ignored."""
     with pytest.raises(NotImplementedError, match=field):
