@@ -6,10 +6,13 @@ Drives the port's two paths at full width and checks them, in phases; any
 failed phase exits non-zero:
 
 1. card and build: the card's name and power limit; nvcc builds every
-   kernel of ``gslm_tpu_torch/csrc`` (one process per source, in parallel).
+   kernel of ``gslm_tpu_torch/csrc`` (one process per source, in
+   parallel); kernel A's registers, static shared memory and resident
+   blocks per SM.
 2. each kernel against its plain PyTorch version on the card: kernel A
    (tile compositor) on one 1920x1080 view of the headline scene, kernel B
-   (SSIM blur) on (15, 1080, 1920) planes. TF32 is off for matmul and cuDNN.
+   (SSIM blur) on (15, 1080, 1920) planes. TF32 is off for matmul and
+   cuDNN.
 3. serving: ``batch_render`` of the 131,072-Gaussian SH-3 scene (spread
    1.5, log-scales in [-5.5, -3.5], seed 0) in a 4-view 1920x1080 batch,
    then ``pair_metrics`` of every view against its ground truth, under
@@ -20,7 +23,12 @@ failed phase exits non-zero:
    view), and the kernel path against the dense golden rasterizer on a
    small scene.
 4. serving timings (CUDA events, median after warm-up), stage breakdown,
-   records walked, kernel A's pairs by gate outcome and each kernel's bound.
+   records walked, each kernel's bound. Kernel A, here and in phases 6-8:
+   its pairs by gate outcome, those in patches its mask keeps, (record,
+   warp) steps by the furthest outcome any lane reaches under 16x2 strips,
+   8x4 patches and 8x4 patches with the mask; the lane bound, the culled
+   lane bound, the mask's own instructions and the three warp-issue
+   estimates.
 5. training: ``train_step`` (one Adam iteration, bench.py's setting: the
    same scene with 50 exposure images, one 1920x1080 view, step 100,
    default options, depth weight 0, no sparse Adam, statistics on) against
@@ -35,7 +43,7 @@ failed phase exits non-zero:
    gradients, parameters and statistics; ``denom`` rising by exactly the
    visible count; the loss falling over 10 steps.
 6. training timings: the step, its stages, the device-busy share, kernel
-   C's bound.
+   C's bound, kernel A on the training view.
 7. one Levenberg–Marquardt outer step (cell lm-1080p-w5): the same scene
    with 50 exposure images, ``ring_camera_batch(50, 1080, 1920)`` as the
    training views, each view's target the port's render of the scene with
@@ -43,32 +51,33 @@ failed phase exits non-zero:
    5-view window, 50 validation views in chunks of 5, 7 line-search
    alphas, CG 2 iterations with restart 1 and the divergence check),
    bench.py's 5-view capacities. Checks: per ``lm_outer_step`` kernel A 71
-   times, B never, C 4 times (Jᵀ·u) and E 6 times (J·v); kernel E against
-   kernel A on the window's own records (the primal) and against its plain
-   version (the tangent, knife-edge bound per row) and bit for bit against
-   itself; the adjoint ⟨J·v, u⟩ = ⟨v, Jᵀ·u⟩ at full width to 1e-4; J·v
-   through the kernels against J·v through the plain compositor; the
-   best validation loss below the starting one, xyz unchanged, finite
-   parameters and step norms; ``lm_phase`` once through its entry point
-   with no capacity growth. Then timings: the step, its stages, the
-   device-busy share, kernel E's bound, kernels A and C on the window
-   beside their bounds.
+   times, B never, C 4 times (Jᵀ·u) and E 6 times (J·v); kernel E's primal
+   equal bit for bit to kernel A's on the window's own records (E walks
+   16x2 strips pair by pair, so it holds A's patches and mask to that
+   walk), its tangent against its plain version (knife-edge bound per
+   row), E bit for bit against itself; the adjoint ⟨J·v, u⟩ = ⟨v, Jᵀ·u⟩
+   at full width to 1e-4; J·v through the kernels against J·v through the
+   plain compositor; the best validation loss below the starting one, xyz
+   unchanged, finite parameters and step norms; ``lm_phase`` once through
+   its entry point with no capacity growth. Then timings: the step, its
+   stages, the device-busy share, kernel E's bound, kernels A and C on the
+   window beside their bounds.
 8. bucket binning (cell train-m1-bucket4-1080p): bench.py's million-
    Gaussian scene (1,048,576 Gaussians, seed 2, one 1920x1080 view,
    ``bucket=4``, its capacities). Checks: ``overflow_probe`` gives the
    render's counts, no overflow; ``render`` launches kernel A once and
    equals the bucket-1 render (1e-6; bit for bit expected); kernel A with
-   the rect gate against its plain version; ``train_step`` launches A
-   once, B twice, C never and kernel D (bucket backward) once, its results
-   finite, ``denom`` rising by the visible count, the loss falling over 10
-   steps; kernel D against its plain version per field and bit for bit
-   against itself; every group's gradient within 1e-5·max of bucket 1's;
-   J·v through kernel E within 1e-6·max of bucket 1's; the adjoint at
-   bucket 4 (E forward, D backward) to 1e-4. Then timings at bucket 4 and
-   1 (render, front end, gather, kernel, backward, ``train_step`` in
-   turns), the device-busy share, kernels A and D's pairs and bounds, the
-   peak device memory, and every kernel's instruction totals from its
-   SASS.
+   the rect gate against its plain version and kernel E<RECT>'s primal
+   equal to it bit for bit; ``train_step`` launches A once, B twice, C
+   never and kernel D (bucket backward) once, its results finite,
+   ``denom`` rising by the visible count, the loss falling over 10 steps;
+   kernel D against its plain version per field and bit for bit against
+   itself; every group's gradient within 1e-5·max of bucket 1's; J·v
+   through kernel E within 1e-6·max of bucket 1's; the adjoint at bucket 4
+   (E forward, D backward) to 1e-4. Then timings at bucket 4 and 1
+   (render, front end, gather, kernel, backward, ``train_step`` in turns),
+   the device-busy share, kernels A and D's pairs and bounds, the peak
+   device memory, and every kernel's instruction totals from its SASS.
 9. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -110,12 +119,19 @@ PEAK_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s
 FP32_RATE = PEAK_FP32 / 2      # fp32 lane instructions/s
 MUFU_RATE = FP32_RATE / 8      # MUFU lane instructions/s
 # Kernel A's lane instructions per (record, pixel) pair, by how far the pair
-# gets, as (FFMA+FADD+FMUL, MUFU), counted in the SASS of
-# csrc/composite_fwd.cu (nvcc 12.9, sm_90a, `cuobjdump -sass`):
+# gets, as (FFMA+FADD+FMUL, MUFU), counted in the SASS of its patch-mapped
+# pair loop (csrc/composite_fwd.cu; nvcc 12.9, sm_90a, the per-block counts
+# `compare_fwd.py --sass-dir` writes; the earlier strip-mapped loop has the
+# same counts):
 A_EVAL = (9, 0)       # dx, dy, power, then the power > 0 gate
 A_EXP = (7, 1)        # past it: expf (one MUFU.EX2), opacity, the 0.99 clip
-A_CONTRIB = (23, 1)   # past the 1/255 gate: log1pf (16), lsum, expf
+A_CONTRIB = (24, 1)   # past the 1/255 gate: log1pf (16 and a predicated
+#                       FFMA of its special case), lsum, expf
 A_ACC = (5, 0)        # T_after >= 1e-4: weight and four accumulators
+# ... and per staged record, its patch mask (1/c0, 1/c2, s2, then 8
+# patches' quad_min_rect, unrolled by 2), on one lane: the design's own
+# overhead, work the function does not need, so no bound counts it
+A_MASK = (361, 2)
 # Kernel C's, counted the same way in csrc/composite_bwd.cu, for pairs
 # before the pixel's exit (pairs at or past it cost an integer compare):
 C_EVAL = (9, 0)       # dx, dy, power, then the power > 0 gate
@@ -277,7 +293,7 @@ def knife_edge_ok(got, want, scale: float = 1.0) -> tuple[bool, float]:
 def _pair_geometry(records, starts, tiles, S, ntx, view_rows, rects=None):
     """Records of G tiles over S slots, their power at every pixel and, with
     ``rects``, the rect gate: (rec (G, S, 10), power (G, S, 256), gate
-    (G, S, 1) bool, all True without ``rects``)."""
+    (G, S, 1) bool, all True without ``rects``, the records' rows (G, S))."""
     import torch
 
     from gslm_tpu_torch.ops.rasterize_cuda import _tile_pixels, rect_gate
@@ -293,30 +309,48 @@ def _pair_geometry(records, starts, tiles, S, ntx, view_rows, rects=None):
              - rec[..., 3, None] * dx * dy)
     gate = (torch.ones_like(idx, dtype=torch.bool) if rects is None
             else rect_gate(rects[idx], tiles, ntx, view_rows))
-    return rec, power, gate[..., None]
+    return rec, power, gate[..., None], idx
 
 
-def pair_work(records, starts, counts, ntx: int, view_rows: int,
-              rects=None, max_elems: int = 1 << 25) -> list[int]:
-    """Kernel A's (record, pixel) pairs on these inputs by how far each
-    gets, from the plain arithmetic: [evaluated (the pixel has not exited),
-    past the power gate, past the 1/255 gate, accumulated (T_after >=
-    1e-4)], then, with ``rects``, the pairs the rect gate skips before the
-    pixel's exit (counted apart from the evaluated ones)."""
+def fwd_work(records, starts, counts, ntx: int, view_rows: int,
+             rects=None, max_elems: int = 1 << 25) -> dict:
+    """A forward walker's work on these inputs from the plain arithmetic,
+    each as [evaluated (the pixel has not exited), past the power gate, past
+    the 1/255 gate, accumulated (T_after >= 1e-4)]:
+
+    - "lane": (record, pixel) pairs, then, with ``rects``, the pairs the
+      rect gate skips before the pixel's exit (kernel E's work, and kernel
+      A's before the patch mask);
+    - "lane culled": the pairs in patches whose ``patch_masks`` bit is set;
+    - "warp strip", "warp patch", "warp patch mask": (record, warp) steps
+      by the furthest outcome any live lane of the warp reaches, warps
+      owning 16x2 strips (the earlier kernel A, kernels C, D and E), 8x4
+      patches (``PATCH_PIXELS``), and 8x4 patches that skip records whose
+      bit is clear (kernel A).
+
+    Checks that no pair past the 1/255 gate has its patch bit clear."""
     import torch
 
     from gslm_tpu_torch.ops.composite import ALPHA_MAX, ALPHA_MIN, T_EPS
-    from gslm_tpu_torch.ops.rasterize_cuda import PIX
+    from gslm_tpu_torch.ops.rasterize_cuda import (PATCH_PIXELS, PIX,
+                                                   patch_masks)
     dev = records.device
     ntiles = counts.shape[0]
     S = max(int(counts.max()), 1)
     G = max(1, max_elems // (S * PIX))
     slot = torch.arange(S, device=dev)
-    n = torch.zeros(5, dtype=torch.long, device=dev)
+    perm = torch.as_tensor(PATCH_PIXELS, device=dev)
+    patch_of = torch.empty(PIX, dtype=torch.long, device=dev)
+    patch_of[perm] = torch.arange(PIX, device=dev) // 32
+    shift = torch.arange(PIX // 32, device=dev, dtype=torch.int32)
+    n = {k: torch.zeros(4, dtype=torch.long, device=dev)
+         for k in ("lane", "lane culled", "warp strip", "warp patch",
+                   "warp patch mask")}
+    gated, unsound = 0, 0
     for t0 in range(0, ntiles, G):
         tiles = torch.arange(t0, min(t0 + G, ntiles), device=dev)
-        rec, power, gate = _pair_geometry(records, starts, tiles, S, ntx,
-                                          view_rows, rects)
+        rec, power, gate, idx = _pair_geometry(records, starts, tiles, S,
+                                               ntx, view_rows, rects)
         listed = (slot[None] < counts[tiles, None])[..., None]   # (G, S, 1)
         valid = listed & gate
         past_exp = valid & (power <= 0.0)
@@ -328,11 +362,31 @@ def pair_work(records, starts, counts, ntx: int, view_rows: int,
             torch.log1p(-torch.where(past_con, alpha, 0.0)), dim=1))
         fail = (past_con & (t_after < T_EPS)).int()
         live = (torch.cumsum(fail, dim=1) - fail) == 0
-        n += torch.stack([(valid & live).sum(), (past_exp & live).sum(),
-                          (past_con & live).sum(),
-                          (past_con & live & (fail == 0)).sum(),
-                          (listed & ~gate & live).sum()])
-    return [int(v) for v in n.tolist()][:4 if rects is None else 5]
+        del power, alpha, t_after
+        outcome = [valid & live, past_exp & live, past_con & live,
+                   past_con & live & (fail == 0)]
+        gated += int((listed & ~gate & live).sum())
+        bits = ((patch_masks(rec, tiles, ntx, view_rows,
+                             None if rects is None else rects[idx])[..., None]
+                 >> shift) & 1).bool()                           # (G, S, 8)
+        on = bits[..., patch_of]                                 # (G, S, 256)
+        unsound += int((outcome[2] & ~on).sum())
+        level = sum(o.to(torch.int8) for o in outcome)           # 0..4
+        warp = {"warp strip": level.view(*level.shape[:2], 8, 32),
+                "warp patch": level[..., perm].view(*level.shape[:2], 8, 32)}
+        warp = {k: v.amax(dim=-1) for k, v in warp.items()}     # (G, S, 8)
+        warp["warp patch mask"] = warp["warp patch"] * bits
+        for k in range(4):
+            n["lane"][k] += outcome[k].sum()
+            n["lane culled"][k] += (outcome[k] & on).sum()
+            for name, lv in warp.items():
+                n[name][k] += (lv > k).sum()
+    check(unsound == 0, f"patch_masks cleared the bit of {unsound} pairs "
+          f"past the 1/255 gate")
+    out = {k: [int(x) for x in v.tolist()] for k, v in n.items()}
+    if rects is not None:
+        out["lane"].append(gated)
+    return out
 
 
 def bwd_pair_work(records, starts, counts, ntx: int, view_rows: int, state,
@@ -359,8 +413,8 @@ def bwd_pair_work(records, starts, counts, ntx: int, view_rows: int, state,
     n = torch.zeros(5, dtype=torch.long, device=dev)
     for t0 in range(0, ntiles, G):
         tiles = torch.arange(t0, min(t0 + G, ntiles), device=dev)
-        rec, power, gate = _pair_geometry(records, starts, tiles, S, ntx,
-                                          view_rows, rects)
+        rec, power, gate, _ = _pair_geometry(records, starts, tiles, S, ntx,
+                                             view_rows, rects)
         before = slot[None, :, None] < exit_pos[tiles, None, :]  # (G, S, 256)
         ev = before & gate
         past = ev & (power <= 0.0)
@@ -377,8 +431,8 @@ def bwd_pair_work(records, starts, counts, ntx: int, view_rows: int, state,
 
 def fwd_ops(work, per_pair) -> tuple[int, int]:
     """(fp32, MUFU) lane instructions of a forward walker (kernel A, E)
-    over ``pair_work``'s counts, ``per_pair`` its (EVAL, EXP, CONTRIB,
-    ACC) counts."""
+    over counts of ``fwd_work``, ``per_pair`` its (EVAL, EXP, CONTRIB, ACC)
+    counts."""
     return tuple(sum(n * c[i] for n, c in zip(work, per_pair))
                  for i in (0, 1))
 
@@ -393,16 +447,56 @@ def bwd_ops(work, per_pair) -> tuple[int, int]:
                  + contrib * (con[i] + sm[i]) for i in (0, 1))
 
 
-def a_cost(records, starts, counts, ntx: int, view_rows: int, walked,
-           rects=None):
-    """Kernel A's pairs by outcome (``pair_work``) on these inputs and its
-    bound in ms: records (and rects) walked, starts + counts in, 7 output
-    rows + walked out."""
-    work = pair_work(records, starts, counts, ntx, view_rows, rects)
-    fp32, mufu = fwd_ops(work, A_PER_PAIR)
-    nbytes = (int(walked.long().sum()) * (40 if rects is None else 56)
+def a_report(tag: str, label: str, records, starts, counts, ntx: int,
+             view_rows: int, walked, ms: float, rects=None) -> dict:
+    """Kernel A's work on these inputs (``fwd_work``), its two bounds and
+    the warp-issue estimates, printed; returns them with the bound the
+    table takes (the lower) and what sets it. Bytes: records (and rects)
+    walked, starts + counts in, 7 output rows + walked out. The culled lane
+    bound counts only the pairs in patches whose mask bit is set. The
+    mask's own instructions per staged record (``A_MASK``) are the design's
+    overhead: printed apart, and counted only in the warp-issue estimate of
+    the masked walk. A warp-issue estimate counts 32 lanes for every
+    (record, warp) step at its furthest outcome."""
+    w = fwd_work(records, starts, counts, ntx, view_rows, rects)
+    n_walked = int(walked.long().sum())
+    nbytes = (n_walked * (40 if rects is None else 56)
               + counts.shape[0] * (7 * 256 * 4 + 12))
-    return work, bound_times(fp32, mufu, nbytes)[1]
+    mask_ops = (n_walked * A_MASK[0], n_walked * A_MASK[1])
+    mask_t = bound_times(*mask_ops, 0)[1]
+
+    def plus_mask(ops):
+        return [a + b for a, b in zip(ops, mask_ops)]
+
+    lane_t, lane, lane_by = bound_times(*fwd_ops(w["lane"], A_PER_PAIR),
+                                        nbytes)
+    culled_t, culled, culled_by = bound_times(
+        *fwd_ops(w["lane culled"], A_PER_PAIR), nbytes)
+    est = {"16x2 strips (earlier design)": bound_times(*fwd_ops(
+               [32 * c for c in w["warp strip"]], A_PER_PAIR), nbytes)[1],
+           "8x4 patches": bound_times(*fwd_ops(
+               [32 * c for c in w["warp patch"]], A_PER_PAIR), nbytes)[1],
+           "8x4 patches with mask": bound_times(*plus_mask(fwd_ops(
+               [32 * c for c in w["warp patch mask"]], A_PER_PAIR)),
+               nbytes)[1]}
+    print(f"{tag} kernel A {label}: pairs [evaluated, past power gate, past "
+          f"1/255 gate, accumulated{', rect-gated' if rects is not None else ''}] "
+          f"{w['lane']}, in masked-in patches {w['lane culled']}; (record, "
+          f"warp) steps by furthest outcome: 16x2 strips {w['warp strip']}, "
+          f"8x4 patches {w['warp patch']}, with the mask "
+          f"{w['warp patch mask']}; {n_walked} records staged", flush=True)
+    print(f"{tag} kernel A {label}: {ms:.3f} ms; lane bound {lane:.4f} ms ("
+          + ", ".join(f"{k} {v:.4f}" for k, v in lane_t.items())
+          + f"), culled lane bound {culled:.4f} ms ("
+          + ", ".join(f"{k} {v:.4f}" for k, v in culled_t.items())
+          + f"); the mask's overhead {mask_t:.4f} ms ({mask_ops[0]} fp32 + "
+          f"{mask_ops[1]} MUFU lane instructions, in no bound)"
+          + "; warp-issue estimate (ms) "
+          + ", ".join(f"{k} {v:.4f}" for k, v in est.items()), flush=True)
+    bound, by = min((lane, lane_by), (culled, culled_by))
+    return {"work": w, "bound": bound, "by": by, "lane bound": lane,
+            "culled bound": culled, "mask overhead": mask_t,
+            "warp issue": est}
 
 
 def c_cost(records, starts, counts, ntx: int, view_rows: int, state,
@@ -439,6 +533,20 @@ def bound_times(fp32: int, mufu: int, nbytes: int) -> tuple[dict, float,
     return times, ms, "bytes" if ms == times["bytes"] else "operations"
 
 
+def fwd_attrs(lib) -> dict:
+    """Registers per thread, static shared memory per block and resident
+    blocks per SM of a kernel A library's two instantiations."""
+    import ctypes
+
+    from gslm_tpu_torch import _build
+    out = (ctypes.c_int * 6)()
+    _build.check(lib.composite_fwd_attrs(ctypes.addressof(out)),
+                 "composite_fwd_attrs")
+    return {inst: {"registers": out[3 * k], "shared_bytes": out[3 * k + 1],
+                   "blocks_per_sm": out[3 * k + 2]}
+            for k, inst in enumerate(("bucket 1", "rects"))}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -465,9 +573,13 @@ def run(dev, n_gauss: int, height: int, width: int) -> None:
     _build.build_all(verbose=True)
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a, "
           f"{len(_build.SIGNATURES)} kernels in parallel)", flush=True)
+    attrs = fwd_attrs(_build.load("composite_fwd"))
+    print(f"kernel A registers, static shared bytes, resident 256-thread "
+          f"blocks per SM: {attrs}", flush=True)
 
     tag = f"[{card}]"
     kernels = serve_phase(dev, n_gauss, height, width, tag)
+    kernels[0]["attrs"] = attrs
     kernels.append(train_phase(dev, n_gauss, height, width, tag, kernels))
     kernels.append(lm_phase(dev, n_gauss, height, width, tag, kernels))
     kernels.insert(3, bucket_phase(dev, M1_N, height, width, tag, kernels))
@@ -485,7 +597,7 @@ def serve_phase(dev, n_gauss: int, height: int, width: int,
     from gslm_tpu_torch.eval.metrics import pair_metrics
     from gslm_tpu_torch.ops.blur_cuda import blur_plain, blur_same
     from gslm_tpu_torch.ops.projection import preprocess
-    from gslm_tpu_torch.ops.rasterize_cuda import (IMG_ROWS, OUT_ROWS,
+    from gslm_tpu_torch.ops.rasterize_cuda import (IMG_ROWS,
                                                    composite_tiles,
                                                    composite_tiles_bwd,
                                                    composite_tiles_plain,
@@ -621,17 +733,8 @@ def serve_phase(dev, n_gauss: int, height: int, width: int,
         a_plain_ms = cuda_ms(
             lambda: composite_tiles_plain(rec, st, cn, ntx, nty), 2)
         n_walked = int(walked.long().sum())
-        ntiles = cn.shape[0]
-        work = pair_work(rec, st, cn, ntx, nty)
-        a_fp32, a_mufu = fwd_ops(work, A_PER_PAIR)
-        # records walked, starts + counts in, 7 output rows + walked out
-        a_bytes = n_walked * 40 + ntiles * (OUT_ROWS * 256 * 4 + 12)
-        a_times, a_bound, a_by = bound_times(a_fp32, a_mufu, a_bytes)
-        print(f"{tag} kernel A pairs [evaluated, past power gate, past 1/255 "
-              f"gate, accumulated] {work}: {a_fp32} fp32 + {a_mufu} MUFU lane "
-              f"instructions, {a_bytes} B; bound ms "
-              + ", ".join(f"{k} {v:.4f}" for k, v in a_times.items()),
-              flush=True)
+        ra = a_report(tag, f"({VIEWS}-view stack)", rec, st, cn, ntx, nty,
+                      walked, stage["kernel A"])
         print(f"{tag} batch_render {VIEWS}x{width}x{height}: {br_ms:.3f} ms median "
               f"of 5 (runs {[round(t, 3) for t in br_times]}); pair_metrics "
               f"1 pair: {pm_ms:.3f} ms median of 10", flush=True)
@@ -645,7 +748,7 @@ def serve_phase(dev, n_gauss: int, height: int, width: int,
         print(f"{tag} kernel A: {rec.shape[0]} records in segments, "
               f"{n_walked} walked ({n_walked / max(rec.shape[0], 1):.3f}), "
               f"{n_walked * 256} (record, pixel) pairs; {stage['kernel A']:.3f}"
-              f" ms vs bound {a_bound:.3f} ms; plain {a_plain_ms:.3f} ms",
+              f" ms vs bound {ra['bound']:.4f} ms; plain {a_plain_ms:.3f} ms",
               flush=True)
 
         b_ms = cuda_ms(lambda: blur_same(planes, taps), 20)
@@ -678,7 +781,11 @@ def serve_phase(dev, n_gauss: int, height: int, width: int,
          "launches_by_path": {"serve": launches["A"]},
          "max_abs_err": err["A"],
          "ms": stage["kernel A"], "plain_ms": a_plain_ms,
-         "bound_ms": a_bound, "bound_by": a_by, "library_ms": None},
+         "bound_ms": ra["bound"], "bound_by": ra["by"], "library_ms": None,
+         "lane_bound_ms": ra["lane bound"],
+         "culled_bound_ms": ra["culled bound"],
+         "mask_overhead_ms": ra["mask overhead"],
+         "warp_issue_ms": ra["warp issue"]},
         {"name": "blur_same", "route": "cuda",
          "source": "gslm_tpu_torch/csrc/blur.cu",
          "replaces": "gslm_tpu/ops/blur_pallas.py:87",
@@ -872,8 +979,9 @@ def train_phase(dev, n_gauss: int, height: int, width: int, tag: str,
 
     work, c_records, c_fp32, c_mufu, c_bytes, c_times, c_bound, c_by = \
         c_cost(rec, st, cn, ntx, vrows, xstate)
-    a_view_bound = a_cost(rec, st, cn, ntx, vrows,
-                          real_fwd(rec, st, cn, ntx, vrows)[1])[1]
+    ra = a_report(tag, "(training view)", rec, st, cn, ntx, vrows,
+                  real_fwd(rec, st, cn, ntx, vrows)[1],
+                  t["kernel A (training view)"])
     print(f"{tag} train_step 1x{width}x{height}: {step_ms:.3f} ms median of "
           f"5 (runs {[round(v, 3) for v in step_times]})", flush=True)
     print(f"{tag} train_step stages (ms): "
@@ -891,13 +999,13 @@ def train_phase(dev, n_gauss: int, height: int, width: int, tag: str,
           flush=True)
     print(f"{tag} kernel A on the training view: "
           f"{t['kernel A (training view)']:.3f} ms vs bound "
-          f"{a_view_bound:.4f} ms", flush=True)
+          f"{ra['bound']:.4f} ms", flush=True)
 
     for entry, key in zip(kernels, ("A", "B")):
         entry["launches_by_path"]["train_step"] = launches[key]
         entry["launches"] += launches[key]
     kernels[0]["ms_train_view"] = t["kernel A (training view)"]
-    kernels[0]["bound_ms_train_view"] = a_view_bound
+    kernels[0]["bound_ms_train_view"] = ra["bound"]
     kernels[1]["vjp_launches"] = b_vjp
     kernels[1]["vjp_ms"] = t["blur VJP (kernel B, reversed taps)"]
     kernels[1]["vjp_max_abs_err"] = vjp_err
@@ -1031,7 +1139,9 @@ def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
           f"{cn.shape[0]} tiles): max|d| {e_vs_a:.3g}"
           f"{' (bitwise equal)' if torch.equal(got, fwd) else ''}",
           flush=True)
-    check(e_vs_a <= 1e-6, "kernel E's primal differs from kernel A's")
+    # E walks 16x2 strips with no patch mask: it holds A's patches and mask
+    # to the pair-by-pair walk
+    check(torch.equal(got, fwd), "kernel E's primal differs from kernel A's")
     check(torch.equal(got, again) and torch.equal(got_dot, again_dot),
           "kernel E is not bitwise repeatable")
     check(bool(torch.isfinite(got_dot).all()), "kernel E: non-finite tangent")
@@ -1130,14 +1240,15 @@ def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
              lambda: rc.composite_tiles_bwd(*c_args), 10)}
     n_walked = int(walked.long().sum())
     ntiles = cn.shape[0]
-    work = pair_work(rec, st, cn, ntx, nty)
+    ra = a_report(tag, "(LM window)", rec, st, cn, ntx, nty, walked,
+                  t["kernel A (window)"])
+    work = ra["work"]["lane"]
     e_fp32, e_mufu = fwd_ops(work, E_PER_PAIR)
     # records and tangents walked, starts + counts in, 7 + 5 rows out
     e_bytes = n_walked * 80 + ntiles * ((rc.OUT_ROWS + rc.IMG_ROWS) * 256 * 4
                                         + 8)
     e_times, e_bound, e_by = bound_times(e_fp32, e_mufu, e_bytes)
-    a_window_bound = bound_times(*fwd_ops(work, A_PER_PAIR), n_walked * 40
-                                 + ntiles * (rc.OUT_ROWS * 256 * 4 + 12))[1]
+    a_window_bound = ra["bound"]
     c_work, c_records, *_, c_window_bound, _ = c_cost(*c_args[:5],
                                                       c_args[6])
     print(f"{tag} lm_outer_step 5x{width}x{height} window, {len(vidx)} val "
@@ -1183,27 +1294,46 @@ def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
             "bound_ms": e_bound, "bound_by": e_by, "library_ms": None}
 
 
-def sass_totals() -> None:
-    """Per kernel function of every built library, its instruction count
-    and FFMA, FADD, FMUL and MUFU totals in the sm_90a SASS (``cuobjdump
-    -sass``): a change to a shared header must leave the bucket-1 kernels'
-    totals as they were (the per-pair counts above are read from the same
-    SASS)."""
+def sass_totals(paths: dict | None = None,
+                blocks_dir: str | None = None) -> None:
+    """Per kernel function of the libraries ``paths`` ({name: path}; every
+    built one by default), its instruction count and FFMA, FADD, FMUL and
+    MUFU totals in the sm_90a SASS (``cuobjdump -sass``): a change to a
+    shared header must leave the bucket-1 kernels' totals as they were.
+    With ``blocks_dir``, each library's SASS is also written there
+    (``sass_<name>.txt``), every function cut into basic blocks (at labels
+    and after branches) with each block's instruction count by opcode: the
+    per-pair counts above are read from it."""
     import collections
     import re
     import shutil
 
     from gslm_tpu_torch import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for name in _build.SIGNATURES:
-        sass = subprocess.run([tool, "-sass", str(_build._lib_path(name))],
+    if paths is None:
+        paths = {name: _build._lib_path(name) for name in _build.SIGNATURES}
+    for name, path in paths.items():
+        sass = subprocess.run([tool, "-sass", str(path)],
                               capture_output=True, text=True,
                               check=True).stdout
+        lines = []
         for fn, body in re.findall(
                 r"Function : (\S+)\n(.*?)(?=\n\s+Function : |\Z)", sass,
                 re.S):
-            ops = collections.Counter(re.findall(
-                r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", body))
+            blocks = [("entry", [])]   # (label, [(address, opcode, text)])
+            for ln in body.splitlines():
+                lab = re.match(r"\s*(\.L_x_\d+):", ln)
+                if lab:
+                    blocks.append((lab.group(1), []))
+                    continue
+                ins = re.search(r"/\*([0-9a-f]{4})\*/\s+((?:@!?U?P\w+\s+)?"
+                                r"([A-Z0-9]+)[^;]*);", ln)
+                if ins:
+                    blocks[-1][1].append(
+                        (ins.group(1), ins.group(3), ins.group(2).strip()))
+                    if ins.group(3) in ("BRA", "EXIT", "RET", "BRX", "CALL"):
+                        blocks.append((f"after {ins.group(1)}", []))
+            ops = collections.Counter(op for _, b in blocks for _, op, _ in b)
             m = re.search(r"(\w+?_kernel)(ILb([01])E)?", fn)
             kernel = m.group(1).split("_cu_")[-1] if m else fn
             kernel = re.sub(r"^[0-9a-f]+\d+", "", kernel)
@@ -1213,6 +1343,19 @@ def sass_totals() -> None:
                   + ", ".join(f"{k} {ops[k]}" for k in ("FFMA", "FADD",
                                                         "FMUL", "MUFU")),
                   flush=True)
+            lines.append(f"== {fn}")
+            for label, b in blocks:
+                if b:
+                    n = collections.Counter(op for _, op, _ in b)
+                    lines.append(f"-- block {label} [{b[0][0]}-{b[-1][0]}] "
+                                 f"{len(b)} instructions: "
+                                 + ", ".join(f"{k} {v}" for k, v in
+                                             sorted(n.items())))
+                    lines.extend(f"   {a} {t}" for a, _, t in b)
+        if blocks_dir:
+            os.makedirs(blocks_dir, exist_ok=True)
+            with open(os.path.join(blocks_dir, f"sass_{name}.txt"), "w") as f:
+                f.write("\n".join(lines) + "\n")
 
 
 def bucket_phase(dev, n_gauss: int, height: int, width: int, tag: str,
@@ -1333,6 +1476,15 @@ def bucket_phase(dev, n_gauss: int, height: int, width: int, tag: str,
               flush=True)
         check(ok, "kernel A with rects disagrees with its plain version")
         del want
+        # E<RECT> walks 16x2 strips with the rect gate and no patch mask
+        got_e, _ = rc.composite_tiles_jvp(
+            tr.records, torch.zeros_like(tr.records), tr.starts, tr.counts,
+            ntx, nty, rects)
+        check(torch.equal(got_e, got),
+              "kernel E's primal differs from kernel A's at bucket 4")
+        print(f"kernel E vs kernel A (rect gate), primal rows 0-6: bitwise "
+              f"equal", flush=True)
+        del got_e
 
     # ---- 4. train_step at bucket 4, kernel D's inputs captured ----------
     shift = torch.tensor(np.random.default_rng(1).normal(
@@ -1528,8 +1680,9 @@ def bucket_phase(dev, n_gauss: int, height: int, width: int, tag: str,
                                                               (1, cfg1))}
 
     n_walked = int(walked.long().sum())
-    a_work, a_bound = a_cost(tr.records, tr.starts, tr.counts, ntx, nty,
-                             walked, rects)
+    ra = a_report(tag, "(m1 bucket 4)", tr.records, tr.starts, tr.counts,
+                  ntx, nty, walked, t4["kernel A"], rects)
+    a_work, a_bound = ra["work"]["lane"], ra["bound"]
     bid = rc.bucket_of_tile(ntx, nty, nty, buckets.bucket, dev)
     d_work, d_records, d_fp32, d_mufu, d_bytes, d_times, d_bound, d_by = \
         c_cost(rec, buckets.bstarts[bid], buckets.bcounts[bid], ntx, nty,

@@ -32,7 +32,8 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "composite_fwd": {"composite_fwd": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP,
-                                        _VP, _VP]},
+                                        _VP, _VP],
+                      "composite_fwd_attrs": [_VP]},
     "composite_bwd": {"composite_bwd": [_VP, _VP, _VP, _I, _I, _I, _VP, _VP,
                                         _I, _VP, _VP]},
     "composite_bucket_bwd": {"composite_bucket_bwd": [

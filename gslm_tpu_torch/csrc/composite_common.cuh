@@ -1,10 +1,14 @@
 // Shared by kernel A (composite_fwd.cu), kernel C (composite_bwd.cu),
 // kernel D (composite_bucket_bwd.cu) and kernel E (composite_jvp.cu): the
 // record layout, the compositing constants, the per-pair alpha arithmetic
-// and bucket mode's rect gate. All four evaluate a (record, pixel) pair
-// through the same inline functions, so the backward's and the tangent's
-// gates (rect, power <= 0, alpha >= 1/255) see the very bits the forward
-// saw.
+// and bucket mode's rect gate. Kernels C, D and E evaluate a (record,
+// pixel) pair through pair_alpha; kernel A calls splat_power and writes
+// pair_alpha's alpha and two gates out as branches (a call to it cost
+// kernel A 32 more SASS instructions and 5-7 % of its time on an H100).
+// Kernel E's primal, held equal to A's bit for bit (chip_smoke.py phases 7
+// and 8, tests/test_torch_cuda.py), guards that copy, so the backward's and
+// the tangent's gates (rect, power <= 0, alpha >= 1/255) see the very bits
+// the forward saw.
 #pragma once
 
 namespace gslm {
@@ -61,6 +65,8 @@ struct Pair {
 
 // Evaluate record r at (px, py): false when the pair contributes nothing
 // (power > 0, or a < 1/255), true with ``p`` filled when it contributes.
+// Kernel A's pair loop (composite_fwd.cu) repeats these operations: change
+// both together.
 __device__ __forceinline__ bool pair_alpha(const float* r, float px, float py,
                                            Pair& p) {
   const float power = splat_power(r, px, py, p.dx, p.dy);

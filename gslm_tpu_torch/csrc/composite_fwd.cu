@@ -16,31 +16,80 @@
 // the Pallas kernel's formulation.
 //
 // Outputs: per tile (7, 256) float32 rows [r, g, b, invdepth, t_final,
-// exit lsum, exit position] and the number of records the block walked
-// (what bounds its work). Rows 5-6 are the exit state kernel C starts its
-// reverse walk from (the Pallas forward saves the same in its spare rows
-// 5-6): the log-transmittance sum at the exit, and the in-segment index of
-// the first record that fails T_after >= 1e-4, or count when none fails.
+// exit lsum, exit position], each pixel at its row-major index in the tile,
+// and the number of records the block walked (what bounds its work). Rows
+// 5-6 are the exit state kernels C and D start their reverse walk from (the
+// Pallas forward saves the same in its spare rows 5-6): the
+// log-transmittance sum at the exit, and the in-segment index of the first
+// record that fails T_after >= 1e-4, or count when none fails.
 //
 // Bound on this card: fp32 and SFU issue over the (record, pixel) pairs
-// walked; the records read are 40 B per record per tile, tiny beside that.
-// Per pair (sm_90a SASS): 9 FFMA/FADD/FMUL for the power and its gate; past
-// it 7 more and one MUFU.EX2 (expf); past the 1/255 gate 23 more (log1pf is
-// 16) and one MUFU.EX2; 5 more to accumulate. Design: one
-// block per tile, one thread per pixel (256 threads). The block stages a
-// chunk of 256 records in shared memory with one coalesced copy, every
-// thread composites it in order from shared memory (all threads read the
-// same record: a broadcast, no bank conflicts), and the block stops at the
-// first chunk boundary where every pixel has exited (__syncthreads_count),
-// so the walk ends early on deep segments as the CUDA reference's does.
+// evaluated; the records read are 40 B per record per tile, tiny beside
+// that. Per pair (sm_90a SASS): 9 FFMA/FADD/FMUL for the power and its gate;
+// past it 7 more and one MUFU.EX2 (expf); past the 1/255 gate 24 more
+// (log1pf is 16 and a predicated FFMA) and one MUFU.EX2; 5 more to
+// accumulate. Beside them a pair costs loads, compares, branches and loop
+// work, and a warp issues a step for all 32 lanes when any lane takes it.
+//
+// Design. One block per tile, one thread per pixel (256 threads); the
+// block stops at the first chunk boundary where every pixel has exited
+// (__syncthreads_count), so ``walked`` counts the records of the chunks
+// staged. What the design does about the bound:
+// - Warps own 8x4 pixel patches: warp w covers x in [8 (w % 2), +8) and
+//   y in [4 (w / 2), +4) of the tile, lane l its pixel (l % 8, l / 8): the
+//   most compact 32-pixel footprint a tile offers, so a splat's edge leaves
+//   fewer warps with lanes that contribute beside lanes that idle than
+//   16x2 strips did (kernels C, D and E keep those: tile_pixel).
+// - A per-record patch mask, computed once per staged record by the thread
+//   that repacks it: bit w is clear only where the record's alpha provably
+//   stays below 1/255 on every pixel of patch w, and a warp walks only the
+//   records whose bit it has (a ballot over 32 records at a time, then the
+//   set bits in order), so the branch is warp-uniform and a skipped record
+//   is never read. The test is the tile front end's exact one
+//   (quad_min_rect, rasterize_tiled._cell_masks) over the patch's pixel
+//   rectangle: q = c0 dx^2 + 2 c1 dx dy + c2 dy^2, the bit kept unless
+//   qmin (1 - 1e-4) - 4e-6 S > s2 + 1e-3, s2 = 2 ln(255 o).
+// - Records staged for vector loads: the chunk is copied as one flat
+//   coalesced range and repacked in shared memory, padded to 12 floats:
+//   the six fields every pair reads as a float4 and a float2 of one 48-B
+//   row, the four read only past the 1/255 gate (rgb, invdepth) as a float4
+//   loaded only there (one address per record: separate hot and cold
+//   arrays ran slower).
+// - At most 40 registers, so 6 blocks (48 warps) are resident per SM.
+//
+// Why the outputs are kernel E's primal (the earlier design's) bit for bit:
+// a pair whose bit is clear fails a >= 1/255, and such a pair changes
+// nothing (no lsum, T, accumulator or exit position), while every other
+// pair runs pair_alpha's operations (splat_power, then its two gates
+// written out) and the accumulation, in record order per pixel. The mask
+// is sound for that:
+// - The kernel's (dx, dy) at a pixel is fl(mean - p), the negation of
+//   fl(p - mean), and rounding is monotone, so it lies in the float
+//   rectangle the mask minimises over (q is even in (dx, dy)).
+// - quad_min_rect is exact for c0, c2 > 0 up to the roundings of q: each
+//   evaluation of q, the kernel's and the mask's, is a few products and
+//   sums, off by at most ~10 u S with u = 2^-24 and S = c0 X^2 + 2 |c1| X Y
+//   + c2 Y^2 the sum of the terms' magnitudes at the rectangle's largest
+//   |dx| = X and |dy| = Y (an inexact parabola minimiser costs O(u^2 S)).
+//   4e-6 S (~67 u S) covers both. The front end's own margin (1e-4 qmin +
+//   1e-3) covers it only where the terms do not cancel: along the long
+//   axis of a strongly anisotropic conic S exceeds q by up to twice the
+//   conic's condition number, which preprocess does not bound (it bounds
+//   the large eigenvalue by 1/0.3, not the small one).
+// - The 1/255 gate itself: a = fl(o expf(power)) with expf within 2 ulp and
+//   1/255 rounded to float move the threshold on q by ~1e-6, and s2 in
+//   float is within ~1e-5 of 2 ln(255 o): the 1e-3 covers both.
+// - Where the test does not hold, every bit is set: c0 or c2 below 1e-12
+//   (the front end's clamp; 1/c0 would lose the minimiser), c0 c2 <= c1^2
+//   (no parabola argument), NaN conic fields, and a non-finite opacity
+//   (with it fminf(NaN, 0.99) makes a pair contribute). Any overflow or NaN
+//   in the test makes the comparison false, so the bit stays set.
 //
 // Bucket mode (a non-null ``rects``, the RECT instantiation): a tile walks
 // its parent bucket's segment, and a record counts for it only inside the
-// record's own tile rect (rect_gate, composite_common.cuh). The block
-// evaluates the gate once per record as it stages the chunk and every
-// thread skips a gated record before its power; the exit position is in
-// bucket-segment coordinates. RECT = false compiles the bucket-1 loop
-// unchanged.
+// record's own tile rect (rect_gate, composite_common.cuh). The gate is
+// folded into the mask: a gated record gets mask 0. The exit position is in
+// bucket-segment coordinates.
 #include <cuda_runtime.h>
 
 #include "composite_common.cuh"
@@ -49,76 +98,178 @@ namespace {
 
 using namespace gslm;
 
+constexpr int WARP = 32;
+constexpr int PATCH_W = 8;   // patch columns; 2 patches across a tile
+constexpr int PATCH_H = 4;   // patch rows; 4 patches down a tile
+constexpr unsigned FULL = 0xffffffffu;
+
+// Minimum of q = a dx^2 + 2 b dx dy + c dy^2 (a, c > 0; ia = 1/a, ic = 1/c)
+// over [dx0, dx1] x [dy0, dy1]: 0 when the centre is inside, else the least
+// of the four edges' clamped parabolas (ops/projection.py quad_min_rect).
+__device__ __forceinline__ float quad_min_rect(float a, float b, float c,
+                                               float ia, float ic, float dx0,
+                                               float dx1, float dy0,
+                                               float dy1) {
+  if (dx0 <= 0.f && 0.f <= dx1 && dy0 <= 0.f && 0.f <= dy1) return 0.f;
+  auto q = [&](float dx, float dy) {
+    return a * dx * dx + 2.f * b * dx * dy + c * dy * dy;
+  };
+  auto edge_x = [&](float dx) {  // x fixed, minimise over y
+    return q(dx, fminf(fmaxf(-b * dx * ic, dy0), dy1));
+  };
+  auto edge_y = [&](float dy) {  // y fixed, minimise over x
+    return q(fminf(fmaxf(-b * dy * ia, dx0), dx1), dy);
+  };
+  return fminf(fminf(edge_x(dx0), edge_x(dx1)),
+               fminf(edge_y(dy0), edge_y(dy1)));
+}
+
+// False only where the record's alpha provably stays below 1/255 on every
+// pixel of the 8x4 patch whose top-left pixel is (x0, y0): geo = (mean x,
+// mean y, c0, c1), c2, inv = (1/c0, 1/c2), s2 = 2 ln(255 o).
+__device__ __forceinline__ bool patch_keeps(float4 geo, float c, float2 inv,
+                                            float s2, int x0, int y0) {
+  const float mx = geo.x, my = geo.y, a = geo.z, b = geo.w;
+  const float dx0 = (float)x0 - mx, dx1 = (float)(x0 + PATCH_W - 1) - mx;
+  const float dy0 = (float)y0 - my, dy1 = (float)(y0 + PATCH_H - 1) - my;
+  const float qmin =
+      quad_min_rect(a, b, c, inv.x, inv.y, dx0, dx1, dy0, dy1);
+  const float X = fmaxf(fabsf(dx0), fabsf(dx1));
+  const float Y = fmaxf(fabsf(dy0), fabsf(dy1));
+  const float S = a * X * X + 2.f * fabsf(b) * X * Y + c * Y * Y;
+  return !(qmin * (1.f - 1e-4f) - 4e-6f * S > s2 + 1e-3f);
+}
+
+// Bit w set unless the record (geo = mean x, mean y, c0, c1; c2; opacity
+// o) provably has alpha < 1/255 on every pixel of patch w of the tile at
+// pixel origin (txc, tyc). Every bit is set where the test does not hold: a
+// non-finite opacity, c0 or c2 at or below 1e-12, c0 c2 <= c1^2, NaN.
+__device__ __forceinline__ unsigned patch_mask(float4 geo, float c, float o,
+                                               int txc, int tyc) {
+  const float a = geo.z, b = geo.w;
+  if (!isfinite(o) || !(a > 1e-12f && c > 1e-12f && a * c > b * b)) {
+    return 0xffu;
+  }
+  const float2 inv = make_float2(1.f / a, 1.f / c);
+  const float s2 = 2.f * logf(fmaxf(o * 255.f, 1e-12f));
+  unsigned m = 0u;
+#pragma unroll 2
+  for (int w = 0; w < PIX / WARP; ++w) {
+    if (patch_keeps(geo, c, inv, s2, txc + PATCH_W * (w & 1),
+                    tyc + PATCH_H * (w >> 1))) {
+      m |= 1u << w;
+    }
+  }
+  return m;
+}
+
+// The staged chunk: per record a 48-B row, the fields every pair reads
+// (hot) then those read past the 1/255 gate (cold), and its patch mask.
+struct Chunk {
+  float4 rec[PIX][3];  // [mx my c0 c1] [c2 o - -] [r g b invdepth]
+  unsigned char mask[PIX];  // bit w: patch w may take the record
+};
+
+// At most 40 registers a thread, so 6 blocks fit on an SM.
 template <bool RECT>
-__global__ void __launch_bounds__(PIX)
+__global__ void __launch_bounds__(PIX, 6)
 composite_fwd_kernel(const float* __restrict__ records,
                      const int* __restrict__ rects,
                      const int* __restrict__ starts,
                      const int* __restrict__ counts, int ntx, int view_rows,
                      float* __restrict__ out, int* __restrict__ walked) {
-  __shared__ float rec[PIX * NF];
-  __shared__ bool gate[RECT ? PIX : 1];
+  __shared__ __align__(16) float flat[PIX * NF];  // the chunk as copied
+  __shared__ Chunk ch;
   const int t = blockIdx.x;
-  const int lane = threadIdx.x;
-  float px, py;
-  tile_pixel(t, lane, ntx, view_rows, px, py);
+  const int tid = threadIdx.x;
+  const int warp = tid / WARP, lane = tid % WARP;
+  const int x = PATCH_W * (warp & 1) + lane % PATCH_W;
+  const int y = PATCH_H * (warp >> 1) + lane / PATCH_W;
   int txc, tyc;
   tile_origin(t, ntx, view_rows, txc, tyc);
+  const float px = (float)(txc + x), py = (float)(tyc + y);
   const int start = starts[t];
   const int count = counts[t];
 
-  float lsum = 0.f, T = 1.f, t_final = 1.f;
+  // T is t_final at the end: the exit leaves T at its T_before
+  float lsum = 0.f, T = 1.f;
   float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f, acc_d = 0.f;
   bool done = false;
   int exit_pos = count;
-  int n_walked = 0;
 
-  for (int base = 0; base < count; base += PIX) {
+  int base = 0;
+  for (; base < count; base += PIX) {
     // barrier: the previous chunk is consumed before it is overwritten
     if (__syncthreads_count(!done) == 0) break;
     const int n = min(PIX, count - base);
+    // one flat coalesced copy ...
     const float* src = records + (size_t)(start + base) * NF;
-    for (int j = lane; j < n * NF; j += PIX) rec[j] = src[j];
-    if (RECT && lane < n) {
-      gate[lane] = rect_gate(rects + (size_t)(start + base + lane) * 4, txc,
-                             tyc);
+    for (int j = tid; j < n * NF; j += PIX) flat[j] = src[j];
+    __syncthreads();
+    // ... then each thread repacks one record (40 B: 8-B aligned) and
+    // computes its patch mask (0 outside the rect gate)
+    if (tid < n) {
+      const float2* f = reinterpret_cast<const float2*>(flat + tid * NF);
+      const float2 f0 = f[0], f1 = f[1], f2 = f[2], f3 = f[3], f4 = f[4];
+      const float4 geo = make_float4(f0.x, f0.y, f1.x, f1.y);
+      ch.rec[tid][0] = geo;
+      ch.rec[tid][1] = make_float4(f2.x, f2.y, 0.f, 0.f);
+      ch.rec[tid][2] = make_float4(f3.x, f3.y, f4.x, f4.y);
+      ch.mask[tid] =
+          !RECT || rect_gate(rects + (size_t)(start + base + tid) * 4, txc,
+                             tyc)
+              ? (unsigned char)patch_mask(geo, f2.x, f2.y, txc, tyc)
+              : (unsigned char)0;
     }
     __syncthreads();
-    n_walked += n;
-    for (int i = 0; i < n && !done; ++i) {
-      if (RECT && !gate[i]) continue;
-      const float* r = rec + i * NF;
-      Pair p;
-      if (!pair_alpha(r, px, py, p)) continue;
-      const float a = p.a;
-      const float l_after = lsum + log1pf(-a);
-      const float t_after = expf(l_after);
-      if (t_after < T_EPS) {  // T_before >= 1e-4 holds here by induction
-        t_final = T;
-        exit_pos = base + i;
-        done = true;
-        break;
+    for (int g = 0; g < n; g += WARP) {
+      if (__all_sync(FULL, done)) break;
+      const int j = g + lane;
+      unsigned todo = __ballot_sync(FULL, j < n && (ch.mask[j] >> warp) & 1u);
+      if (done) todo = 0u;
+      for (; todo != 0u; todo &= todo - 1u) {
+        const int i = g + __ffs(todo) - 1;
+        const float4 geo = ch.rec[i][0];
+        const float2 co = make_float2(ch.rec[i][1].x, ch.rec[i][1].y);
+        const float r[6] = {geo.x, geo.y, geo.z, geo.w, co.x, co.y};
+        // pair_alpha's alpha and gates, written out: the same operations
+        // (kernel E's primal, which calls pair_alpha, is checked equal bit
+        // for bit), but a branch at each gate instead of a bool the loop
+        // re-tests (composite_common.cuh)
+        float dx, dy;
+        const float power = splat_power(r, px, py, dx, dy);
+        if (!(power <= 0.f)) continue;
+        const float a = fminf(r[5] * expf(power), ALPHA_MAX);
+        if (!(a >= ALPHA_MIN)) continue;
+        const float l_after = lsum + log1pf(-a);
+        const float t_after = expf(l_after);
+        if (t_after < T_EPS) {  // T_before >= 1e-4 holds here by induction
+          exit_pos = base + i;
+          done = true;
+          break;
+        }
+        const float4 col = ch.rec[i][2];
+        const float w = a * T;
+        acc_r += w * col.x;
+        acc_g += w * col.y;
+        acc_b += w * col.z;
+        acc_d += w * col.w;
+        lsum = l_after;
+        T = t_after;
       }
-      const float w = a * T;
-      acc_r += w * r[6];
-      acc_g += w * r[7];
-      acc_b += w * r[8];
-      acc_d += w * r[9];
-      lsum = l_after;
-      T = t_after;
     }
   }
-  if (!done) t_final = T;
 
-  float* o = out + (size_t)t * OUT_ROWS * PIX + lane;
+  float* o = out + (size_t)t * OUT_ROWS * PIX + y * TILE + x;
   o[0 * PIX] = acc_r;
   o[1 * PIX] = acc_g;
   o[2 * PIX] = acc_b;
   o[3 * PIX] = acc_d;
-  o[4 * PIX] = t_final;
+  o[4 * PIX] = T;
   o[5 * PIX] = lsum;
   o[6 * PIX] = (float)exit_pos;  // exact: segments hold far fewer than 2^24
-  if (lane == 0) walked[t] = n_walked;
+  // every chunk up to the one the block stopped at was staged
+  if (tid == 0) walked[t] = min(base, count);
 }
 
 }  // namespace
@@ -141,3 +292,5 @@ extern "C" int composite_fwd(const float* records, const int* rects,
   }
   return (int)cudaGetLastError();
 }
+
+#include "composite_fwd_attrs.cuh"

@@ -37,7 +37,9 @@ thus serves J·v and Jᵀ·u; records that are dual AND record autograd raise.
 ``composite_tiles`` / ``composite_tiles_bwd`` /
 ``composite_tiles_bucket_bwd`` / ``composite_tiles_jvp`` launch their
 kernels for CUDA tensors and take their plain versions (the same names with
-``_plain``) for CPU tensors only.
+``_plain``) for CPU tensors only. Kernel A gives each warp an 8x4 pixel
+patch of the tile (``PATCH_PIXELS``) and skips the records its per-record
+patch mask rules out; ``patch_masks`` is that mask's plain version.
 """
 
 from __future__ import annotations
@@ -52,7 +54,7 @@ import torch.autograd.forward_ad as fwAD
 from gslm_tpu_torch import _build
 from gslm_tpu_torch.ops.composite import (clip_alpha, composite_weights,
                                           exit_state)
-from gslm_tpu_torch.ops.projection import TILE, Splats2D
+from gslm_tpu_torch.ops.projection import TILE, Splats2D, quad_min_rect
 from gslm_tpu_torch.ops.rasterize_tiled import (RasterConfig, _cdiv,
                                                 bucket_splats,
                                                 duplicate_sort_ranges)
@@ -61,6 +63,12 @@ PIX = TILE * TILE   # pixels per tile
 NF = 10             # record fields: mean2d 2, conic 3, opacity, rgb 3, invdepth
 IMG_ROWS = 5        # r, g, b, invdepth, t_final
 OUT_ROWS = 7        # + the exit state: log-transmittance sum, exit position
+PATCH_W, PATCH_H = 8, 4   # kernel A's warp patches: 2 across, 4 down a tile
+# the row-major tile pixel of each of kernel A's 256 threads: warp w owns
+# the patch at (8 (w % 2), 4 (w // 2)), lane l its pixel (l % 8, l // 8)
+PATCH_PIXELS = np.array(
+    [(PATCH_H * (w // 2) + l // PATCH_W) * TILE + PATCH_W * (w % 2)
+     + l % PATCH_W for w in range(PIX // 32) for l in range(32)])
 
 
 class BucketSegments(NamedTuple):
@@ -214,6 +222,43 @@ def rect_gate(rects: torch.Tensor, tiles: torch.Tensor, ntx: int,
                            view_rows) * TILE)[:, None]
     return ((txc >= rects[..., 0]) & (txc < rects[..., 1])
             & (tyc >= rects[..., 2]) & (tyc < rects[..., 3]))
+
+
+def patch_masks(records: torch.Tensor, tiles: torch.Tensor, ntx: int,
+                view_rows: int, rects: torch.Tensor | None = None
+                ) -> torch.Tensor:
+    """Plain version of kernel A's per-record patch mask: records (G, S, 10)
+    that G tiles (ids ``tiles`` (G,)) walk → (G, S) int32, bit w set unless
+    the record's alpha provably stays below 1/255 on every pixel of the
+    tile's 8x4 patch w (``PATCH_PIXELS``). The test is the tile front end's
+    (``quad_min_rect`` over the patch's pixel rectangle) with the kernel's
+    rounding term: clear iff qmin (1 - 1e-4) - 4e-6 S > s2 + 1e-3, S the
+    terms' magnitudes at the rectangle's largest |dx| and |dy|. All bits are
+    set for a non-finite opacity, c0 or c2 at or below 1e-12, or c0 c2 <=
+    c1²; with ``rects`` (G, S, 4) a record outside the rect gate gets 0.
+    Used by the tests and chip_smoke.py's counts, not by the render path."""
+    mx, my, a, b, c, o = (records[..., k] for k in range(6))
+    txc = ((tiles % ntx) * TILE)[:, None]
+    tyc = (torch.remainder(torch.div(tiles, ntx, rounding_mode="floor"),
+                           view_rows) * TILE)[:, None]
+    s2 = 2.0 * torch.log(torch.clamp(o * 255.0, min=1e-12))
+    mask = torch.zeros(mx.shape, dtype=torch.int32, device=records.device)
+    for w in range(PIX // 32):
+        x0 = txc + PATCH_W * (w % 2)
+        y0 = tyc + PATCH_H * (w // 2)
+        dx0, dx1 = x0.float() - mx, (x0 + PATCH_W - 1).float() - mx
+        dy0, dy1 = y0.float() - my, (y0 + PATCH_H - 1).float() - my
+        qmin = quad_min_rect(a, b, c, dx0, dx1, dy0, dy1)
+        X = torch.maximum(dx0.abs(), dx1.abs())
+        Y = torch.maximum(dy0.abs(), dy1.abs())
+        S = a * X * X + 2.0 * b.abs() * X * Y + c * Y * Y
+        keep = ~(qmin * (1.0 - 1e-4) - 4e-6 * S > s2 + 1e-3)
+        mask |= keep.to(torch.int32) << w
+    sound = torch.isfinite(o) & (a > 1e-12) & (c > 1e-12) & (a * c > b * b)
+    mask = torch.where(sound, mask, 0xFF)
+    if rects is not None:
+        mask = torch.where(rect_gate(rects, tiles, ntx, view_rows), mask, 0)
+    return mask
 
 
 def _composite_chunk(records, starts, counts, tiles, S, ntx, view_rows,

@@ -19,7 +19,11 @@ last bucket column has missing member tiles): kernels A and E with the rect
 gate against their plain versions at the bounds above, kernel A's bucket
 composite equal to its bucket-1 composite, kernel D against its plain
 version per record field (kernel C's bound) and bit for bit against
-itself."""
+itself. Kernel A's 8x4 patches and patch mask against kernel E's primal,
+which walks 16x2 strips pair by pair (bit for bit): segments of 1,200
+records in one tile (several chunks, blocks that stop at a chunk boundary),
+partial tiles, buckets of 4 at ntx = 5, 9 and 13, and the adversarial
+records of tests/patch_cases.py."""
 
 import numpy as np
 import pytest
@@ -46,6 +50,9 @@ from gslm_tpu_torch.renderer import batch_render, render
 from gslm_tpu_torch.train import loss_and_grads, train_step
 from gslm_tpu_torch.train_lm import lm_outer_step
 from gslm_tpu_torch.utils.synthetic import random_gaussians, ring_camera_batch
+# pytest puts tests/ on sys.path; an installed ``tests`` package can shadow
+# the name ``tests.patch_cases``
+from patch_cases import adversarial_records
 
 
 @pytest.fixture
@@ -335,3 +342,109 @@ def test_bucket_bwd_kernel_matches_plain(cuda, bucket, depth_grad):
         assert _knife_edge(got[:, f], want[:, f], scale), f
     if not depth_grad:
         assert float(got[:, 9].abs().max()) == 0.0
+
+
+def _bits_equal(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _deep_segments(cuda):
+    """3x2 tiles of 1,200 records each around its own tile: tiles 0-2
+    opaque (every pixel exits in the first chunk), tiles 3-5 faint (the
+    walk goes through all five chunks)."""
+    rng = np.random.default_rng(7)
+    ntx, nty, n = 3, 2, 1200
+    rec = np.zeros((ntx * nty * n, 10), np.float32)
+    for t in range(ntx * nty):
+        r = rec[t * n:(t + 1) * n]
+        opaque = t < 3   # wide, opaque splats centred in the tile
+        lo, hi = (0, 16) if opaque else (-8, 24)
+        r[:, 0] = (t % ntx) * 16 + rng.uniform(lo, hi, n)
+        r[:, 1] = (t // ntx) * 16 + rng.uniform(lo, hi, n)
+        k = rng.uniform(0.01, 0.05, n) if opaque else rng.uniform(0.02, 0.5, n)
+        r[:, 2], r[:, 4] = k, k * rng.uniform(0.5, 2.0, n)
+        r[:, 3] = rng.uniform(-0.5, 0.5, n) * np.sqrt(r[:, 2] * r[:, 4])
+        r[:, 5] = (rng.uniform(0.7, 0.99, n) if opaque
+                   else rng.uniform(0.005, 0.05, n))
+        r[:, 6:] = rng.uniform(0.0, 1.0, (n, 4))
+    starts = torch.arange(ntx * nty, dtype=torch.int32, device=cuda) * n
+    counts = torch.full((ntx * nty,), n, dtype=torch.int32, device=cuda)
+    return torch.tensor(rec, device=cuda), starts, counts, ntx, nty
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["deep", "partial"])
+def test_patch_kernel_equals_strip_walk(cuda, case):
+    """Kernel A against kernel E's primal bit for bit (rows 0-6) and
+    against its plain version at the knife-edge bound."""
+    if case == "deep":
+        records, starts, counts, ntx, nty = _deep_segments(cuda)
+    else:   # 120x200: 7.5 tile rows, 12.5 tile columns
+        (records, starts, counts), ntx, nty = _small_scene(cuda), 13, 8
+    tiles, walked = composite_tiles(records, starts, counts, ntx, nty)
+    primal, _ = composite_tiles_jvp(records, torch.zeros_like(records),
+                                    starts, counts, ntx, nty)
+    want, _ = composite_tiles_plain(records, starts, counts, ntx, nty)
+    torch.cuda.synchronize()
+    assert _bits_equal(tiles, primal)
+    assert _knife_edge(tiles[:, :5], want[:, :5])
+    assert float((tiles[:, 6] != want[:, 6]).float().mean()) <= 0.01
+    w, c = walked.cpu().numpy(), counts.cpu().numpy()
+    assert all(k == n or (k % 256 == 0 and k < n) for k, n in zip(w, c))
+    if case == "deep":   # stopped after one chunk, and walked all five
+        assert list(w) == [256] * 3 + [1200] * 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [80, 144, 208])
+def test_patch_kernel_bucket4_equals_strip_walk(cuda, width):
+    """Bucket 4 at ntx = 5, 9 and 13 (bucket columns with missing member
+    tiles): kernel A<RECT> against E<RECT>'s primal bit for bit, against
+    its plain version, and against kernel A at bucket 1 (rows 0-5)."""
+    params = random_gaussians(np.random.default_rng(0), n=4096, spread=1.5,
+                              device=cuda)
+    cam = ring_camera_batch(1, 128, width, device=cuda).view(0)
+    ntx = -(-width // 16)
+    with torch.no_grad():
+        splats = preprocess(params, cam, active_sh_degree=3)
+        tr = tile_records(splats, ntx, 8, RasterConfig(bucket=4))
+        base = tile_records(splats, ntx, 8, RasterConfig())
+    rects = tr.buckets.rects
+    tiles, _ = composite_tiles(tr.records, tr.starts, tr.counts, ntx, 8,
+                               rects)
+    primal, _ = composite_tiles_jvp(tr.records, torch.zeros_like(tr.records),
+                                    tr.starts, tr.counts, ntx, 8, rects)
+    want, _ = composite_tiles_plain(tr.records, tr.starts, tr.counts, ntx, 8,
+                                    rects)
+    one, _ = composite_tiles(base.records, base.starts, base.counts, ntx, 8)
+    torch.cuda.synchronize()
+    assert _bits_equal(tiles, primal)
+    assert _knife_edge(tiles[:, :5], want[:, :5])
+    assert torch.equal(tiles[:, :6], one[:, :6])
+
+
+@pytest.mark.cuda
+def test_patch_kernel_on_adversarial_records(cuda):
+    """The adversarial records of the CPU property test (threshold
+    opacities, ellipse edges on patch borders, strong anisotropy, conics
+    that are not positive definite, NaN and inf fields), in segments of 48
+    around each of 4x4 tiles: kernel A equals kernel E's primal bit for
+    bit."""
+    rng = np.random.default_rng(1)
+    rec = adversarial_records(rng, 128)
+    rng.shuffle(rec)
+    ntx = nty = 4
+    seg = len(rec) // (ntx * nty)
+    for t in range(ntx * nty):
+        rec[t * seg:(t + 1) * seg, 0] += (t % ntx) * 16
+        rec[t * seg:(t + 1) * seg, 1] += (t // ntx) * 16
+    records = torch.tensor(rec, device=cuda)
+    starts = torch.arange(ntx * nty, dtype=torch.int32, device=cuda) * seg
+    counts = torch.full((ntx * nty,), seg, dtype=torch.int32, device=cuda)
+    tiles, walked = composite_tiles(records, starts, counts, ntx, nty)
+    primal, _ = composite_tiles_jvp(records, torch.zeros_like(records),
+                                    starts, counts, ntx, nty)
+    torch.cuda.synchronize()
+    assert _bits_equal(tiles, primal)
+    assert bool((walked == counts).all())
+    assert int((tiles[:, 6] < seg).sum()) > 0     # some pixels exit
