@@ -7,8 +7,8 @@ failed phase exits non-zero:
 
 1. card and build: the card's name and power limit; nvcc builds every
    kernel of ``gslm_tpu_torch/csrc`` (one process per source, in
-   parallel); kernel A's registers, static shared memory and resident
-   blocks per SM.
+   parallel); kernels A's, C's and E's registers, static shared memory
+   and resident blocks per SM.
 2. each kernel against its plain PyTorch version on the card: kernel A
    (tile compositor) on one 1920x1080 view of the headline scene, kernel B
    (SSIM blur) on (15, 1080, 1920) planes. TF32 is off for matmul and
@@ -36,14 +36,20 @@ failed phase exits non-zero:
    ``features_dc`` shifted by a seeded offset. Checks: per step kernel A
    once, kernel B twice (forward and VJP) and kernel C (backward
    compositor) once; kernel C against its plain version on the step's own
-   records and cotangents (knife-edge bound per field) and bit for bit
-   against itself; the blur VJP against the plain reversed-tap blur; every
+   records and cotangents (knife-edge bound per field), bit for bit
+   against itself and against the guard C<MASK=false>'s (every patch bit
+   set: it holds the patch bits C computes to the records that contribute;
+   ``c_vs_plain``); the blur VJP against the plain reversed-tap blur; every
    group's gradient through the kernels against the gradient through the
    plain compositor (the plain versions patched in here); finite
    gradients, parameters and statistics; ``denom`` rising by exactly the
    visible count; the loss falling over 10 steps.
 6. training timings: the step, its stages, the device-busy share, kernel
-   C's bound, kernel A on the training view.
+   A on the training view; kernel C here and in phases 7 and 8
+   (``c_report``): its pairs by gate outcome and those in patches its mask
+   keeps, (record, warp) steps under the earlier 16x2 strips and under its
+   8x4 patches with the mask and per-warp starts, the lane and culled lane
+   bounds and the mask's overhead.
 7. one Levenberg–Marquardt outer step (cell lm-1080p-w5): the same scene
    with 50 exposure images, ``ring_camera_batch(50, 1080, 1920)`` as the
    training views, each view's target the port's render of the scene with
@@ -52,23 +58,26 @@ failed phase exits non-zero:
    alphas, CG 2 iterations with restart 1 and the divergence check),
    bench.py's 5-view capacities. Checks: per ``lm_outer_step`` kernel A 71
    times, B never, C 4 times (Jᵀ·u) and E 6 times (J·v); kernel E's primal
-   equal bit for bit to kernel A's on the window's own records (E walks
-   16x2 strips pair by pair, so it holds A's patches and mask to that
-   walk), its tangent against its plain version (knife-edge bound per
-   row), E bit for bit against itself; the adjoint ⟨J·v, u⟩ = ⟨v, Jᵀ·u⟩
-   at full width to 1e-4; J·v through the kernels against J·v through the
+   equal bit for bit to kernel A's on the window's own records, and both
+   to the guard E<MASK=false>'s (every record through pair_alpha, no
+   patch mask: it holds A's and E's mask and A's written-out gates to the
+   pair-by-pair walk; ``guard_check``), E's tangent within 1e-6 of the
+   guard's and against its plain version (knife-edge bound per row), E bit
+   for bit against itself; the adjoint ⟨J·v, u⟩ = ⟨v, Jᵀ·u⟩ at full width
+   to 1e-4; kernel C on the window's own Jᵀ·u inputs against its plain
+   version, itself and its guard; neither guard launched by the step; J·v through the kernels against J·v through the
    plain compositor; the best validation loss below the starting one, xyz
    unchanged, finite parameters and step norms; ``lm_phase`` once through
    its entry point with no capacity growth. Then timings: the step, its
-   stages, the device-busy share, kernel E's bound, kernels A and C on the
-   window beside their bounds.
+   stages, the device-busy share, kernels E, A and C on the window beside
+   their bounds (kernel E's lane and culled bounds: ``e_report``).
 8. bucket binning (cell train-m1-bucket4-1080p): bench.py's million-
    Gaussian scene (1,048,576 Gaussians, seed 2, one 1920x1080 view,
    ``bucket=4``, its capacities). Checks: ``overflow_probe`` gives the
    render's counts, no overflow; ``render`` launches kernel A once and
    equals the bucket-1 render (1e-6; bit for bit expected); kernel A with
-   the rect gate against its plain version and kernel E<RECT>'s primal
-   equal to it bit for bit; ``train_step`` launches A once, B twice, C
+   the rect gate against its plain version, kernel E<RECT>'s primal equal
+   to it bit for bit and both to the guard E<RECT, MASK=false>'s; ``train_step`` launches A once, B twice, C
    never and kernel D (bucket backward) once, its results finite,
    ``denom`` rising by the visible count, the loss falling over 10 steps;
    kernel D against its plain version per field and bit for bit against
@@ -76,13 +85,15 @@ failed phase exits non-zero:
    through kernel E within 1e-6·max of bucket 1's; the adjoint at bucket 4
    (E forward, D backward) to 1e-4. Then timings at bucket 4 and 1
    (render, front end, gather, kernel, backward, ``train_step`` in turns),
-   the device-busy share, kernels A and D's pairs and bounds, the peak
-   device memory, and every kernel's instruction totals from its SASS.
+   the device-busy share, kernels A's and D's pairs and bounds, kernel C at
+   bucket 1, the peak device memory, and every kernel's instruction totals
+   from its SASS.
 9. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
-Imports nothing of JAX or of gslm_tpu. Without CUDA it exits non-zero
-before printing any result.
+Imports nothing of JAX or of gslm_tpu. It finds the package beside itself
+however it is started; without the package beside it, or without CUDA, it
+exits non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -96,6 +107,9 @@ import sys
 import time
 
 import numpy as np
+
+# the package beside this script, however the script is started
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 N_GAUSS, H, W, VIEWS = 131_072, 1080, 1920, 4
 # bench.py's single-view capacities (bench.py:196-199): the training view
@@ -132,33 +146,41 @@ A_ACC = (5, 0)        # T_after >= 1e-4: weight and four accumulators
 # patches' quad_min_rect, unrolled by 2), on one lane: the design's own
 # overhead, work the function does not need, so no bound counts it
 A_MASK = (361, 2)
-# Kernel C's, counted the same way in csrc/composite_bwd.cu, for pairs
-# before the pixel's exit (pairs at or past it cost an integer compare):
+# Kernel C's, counted the same way in the patch-mapped loop of
+# csrc/composite_bwd.cu (its 8x4 patches and patch mask, per-warp starts),
+# for pairs before the pixel's exit (pairs at or past it cost an integer
+# compare):
 C_EVAL = (9, 0)       # dx, dy, power, then the power > 0 gate
 C_EXP = (7, 1)        # past it: expf (MUFU.EX2), opacity, the 0.99 clip
-C_CONTRIB = (56, 2)   # contributing: log1pf (16), T = expf (MUFU.EX2),
-#                       S / (1 - a) (MUFU.RCP), dw, da, S, the 10 terms
-#                       (dx c1 recomputed since the shared pair function)
+C_CONTRIB = {True: (56, 2), False: (54, 2)}   # contributing, with and
+#                       without depth_grad: log1pf (16), T = expf
+#                       (MUFU.EX2), S / (1 - a) (MUFU.RCP), dw, da, S, the
+#                       terms
 C_SUM = (10, 0)       # the least reduction: one add per nonzero term (the
-#                       kernel's warp shuffles issue 50 FADD per lane)
-# Kernel E's, counted the same way in csrc/composite_jvp.cu, by how far the
-# pair gets (kernel A's walk and gates):
+#                       kernel's reduce-scatter issues 12 FADD per lane for a
+#                       contributing (record, warp) step of 2 or more lanes)
+# ... and per staged record, its patch mask: 8 threads, one per patch,
+# each (71, 2) (1/c0, 1/c2, s2 and one patch's quad_min_rect): the design's
+# overhead, in no bound, as A_MASK
+C_MASK = (8 * 71, 8 * 2)
+# Kernel E's, counted the same way in the patch-mapped loop of
+# csrc/composite_jvp.cu (kernel A's walk, gates and mask), by how far the
+# pair gets:
 E_EVAL = (9, 0)       # dx, dy, power, then the power > 0 gate
 E_EXP = (7, 1)        # past it: expf (MUFU.EX2), opacity, the 0.99 clip
-E_CONTRIB = (23, 1)   # past the 1/255 gate: log1pf (16), lsum, expf
+E_CONTRIB = (24, 1)   # past the 1/255 gate: log1pf (16), lsum, expf
 E_ACC = (41, 1)       # T_after >= 1e-4: weight and accumulators, pow_dot,
 #                       a_dot, T_dot, w_dot, 8 tangent accumulators and
 #                       a_dot / (1 - a) (MUFU.RCP and its Newton step)
 A_PER_PAIR = (A_EVAL, A_EXP, A_CONTRIB, A_ACC)
-C_PER_PAIR = (C_EVAL, C_EXP, C_CONTRIB, C_SUM)
 E_PER_PAIR = (E_EVAL, E_EXP, E_CONTRIB, E_ACC)
 # Kernel D's, counted the same way in csrc/composite_bucket_bwd.cu (kernel
 # C's walk, composite_bwd_walk.cuh), for pairs inside the rect gate before
 # the pixel's exit; a gated record costs a shared-memory flag, no fp32:
 D_EVAL = (9, 0)       # dx, dy, power, then the power > 0 gate
 D_EXP = (7, 1)        # past it: expf (MUFU.EX2), opacity, the 0.99 clip
-D_CONTRIB = (55, 2)   # contributing: C's 56 less one FMUL the compiler
-#                       shared in this instantiation
+D_CONTRIB = (55, 2)   # contributing: the earlier kernel C's 56 less one
+#                       FMUL the compiler shared in this instantiation
 D_SUM = (10, 0)       # the least reduction, as C_SUM
 D_PER_PAIR = (D_EVAL, D_EXP, D_CONTRIB, D_SUM)
 # bench.py's million-Gaussian configuration (bench.py:338-378): seed 2,
@@ -319,14 +341,14 @@ def fwd_work(records, starts, counts, ntx: int, view_rows: int,
     the 1/255 gate, accumulated (T_after >= 1e-4)]:
 
     - "lane": (record, pixel) pairs, then, with ``rects``, the pairs the
-      rect gate skips before the pixel's exit (kernel E's work, and kernel
-      A's before the patch mask);
+      rect gate skips before the pixel's exit (kernels A's and E's work
+      before the patch mask);
     - "lane culled": the pairs in patches whose ``patch_masks`` bit is set;
     - "warp strip", "warp patch", "warp patch mask": (record, warp) steps
       by the furthest outcome any live lane of the warp reaches, warps
-      owning 16x2 strips (the earlier kernel A, kernels C, D and E), 8x4
-      patches (``PATCH_PIXELS``), and 8x4 patches that skip records whose
-      bit is clear (kernel A).
+      owning 16x2 strips (the earlier kernels A and E), 8x4 patches
+      (``PATCH_PIXELS``), and 8x4 patches that skip records whose bit is
+      clear (kernels A and E).
 
     Checks that no pair past the 1/255 gate has its patch bit clear."""
     import torch
@@ -392,7 +414,8 @@ def fwd_work(records, starts, counts, ntx: int, view_rows: int,
 def bwd_pair_work(records, starts, counts, ntx: int, view_rows: int, state,
                   rects=None, max_elems: int = 1 << 25
                   ) -> tuple[list[int], int]:
-    """Kernel C's work on these inputs from the plain arithmetic and kernel
+    """A reverse walker's work over 16x2 strips (kernel D's; ``c_work``
+    counts kernel C's) on these inputs from the plain arithmetic and kernel
     A's exit state: ([pairs walked (records below the tile's largest exit
     position, times 256), evaluated (before the pixel's own exit), past the
     power gate, contributing (past the 1/255 gate)], records walked). With
@@ -439,8 +462,8 @@ def fwd_ops(work, per_pair) -> tuple[int, int]:
 
 def bwd_ops(work, per_pair) -> tuple[int, int]:
     """(fp32, MUFU) lane instructions of a reverse walker (kernel C, D)
-    over ``bwd_pair_work``'s counts, ``per_pair`` its (EVAL, EXP, CONTRIB,
-    SUM) counts."""
+    over counts of ``bwd_pair_work`` or ``c_work``, ``per_pair`` its (EVAL,
+    EXP, CONTRIB, SUM) counts."""
     _, evaluated, past_power, contrib = work[:4]
     ev, ex, con, sm = per_pair
     return tuple(evaluated * ev[i] + past_power * ex[i]
@@ -499,26 +522,231 @@ def a_report(tag: str, label: str, records, starts, counts, ntx: int,
             "warp issue": est}
 
 
-def c_cost(records, starts, counts, ntx: int, view_rows: int, state,
-           buckets=None):
-    """Kernel C's (or, with ``buckets``, kernel D's) work on these inputs
-    (per-tile ``starts``/``counts``) and its bound: (pairs, records walked,
-    fp32, MUFU, bytes, bound times, bound ms, bound by). Bytes: the records
-    walked (C; D reads each record and rect once) and drec written once,
-    gtiles + exit state per tile, the segment table."""
-    rects = None if buckets is None else buckets.rects
+def d_cost(records, starts, counts, ntx: int, view_rows: int, state,
+           buckets):
+    """Kernel D's work on these inputs (per-tile ``starts``/``counts``, each
+    tile's bucket segment) and its bound: (pairs, records walked, fp32,
+    MUFU, bytes, bound times, bound ms, bound by). Bytes: each record and
+    rect read once and drec written once, gtiles + exit state per tile, the
+    segment table."""
     work, walked = bwd_pair_work(records, starts, counts, ntx, view_rows,
-                                 state, rects)
-    fp32, mufu = bwd_ops(work, C_PER_PAIR if buckets is None
-                         else D_PER_PAIR)
+                                 state, buckets.rects)
+    fp32, mufu = bwd_ops(work, D_PER_PAIR)
     ntiles, n = counts.shape[0], records.shape[0]
-    if buckets is None:
-        nbytes = walked * 40 + n * 40 + ntiles * (7 * 256 * 4 + 8)
-    else:
-        nbytes = (n * (40 + 16 + 40) + ntiles * 7 * 256 * 4
-                  + buckets.bcounts.shape[0] * 8)
+    nbytes = (n * (40 + 16 + 40) + ntiles * 7 * 256 * 4
+              + buckets.bcounts.shape[0] * 8)
     return (work, walked, fp32, mufu, nbytes,
             *bound_times(fp32, mufu, nbytes))
+
+
+def c_work(records, starts, counts, ntx: int, view_rows: int, state,
+           max_elems: int = 1 << 25) -> dict:
+    """Kernel C's work on these inputs from the plain arithmetic and kernel
+    A's exit state ``state`` (ntiles, 2, 256), each as [walked, evaluated
+    (before the pixel's exit), past the power gate, contributing]:
+
+    - "lane": (record, pixel) pairs, walked = the records below the tile's
+      largest exit position times 256;
+    - "lane culled": the same in patches whose ``patch_masks`` bit is set,
+      walked = records below the warp's own largest exit with the bit set,
+      times 32 (what the kernel walks);
+    - "warp strip", "warp patch mask": (record, warp) steps by the furthest
+      outcome any lane reaches, the earlier design's 16x2 strips over every
+      record below the block's largest exit, and the kernel's 8x4 patches
+      over the records below the warp's largest exit whose bit it has;
+    - "staged": records staged (the tiles' largest exit positions).
+
+    Checks that no contributing pair has its patch bit clear."""
+    import torch
+
+    from gslm_tpu_torch.ops.composite import ALPHA_MAX, ALPHA_MIN
+    from gslm_tpu_torch.ops.rasterize_cuda import (PATCH_PIXELS, PIX,
+                                                   patch_masks)
+    dev = records.device
+    ntiles = counts.shape[0]
+    exit_pos = state[:, 1].long()                               # (T, 256)
+    n_eff = exit_pos.amax(dim=1)
+    S = max(int(n_eff.max()), 1)
+    G = max(1, max_elems // (S * PIX))
+    slot = torch.arange(S, device=dev)
+    perm = torch.as_tensor(PATCH_PIXELS, device=dev)
+    patch_of = torch.empty(PIX, dtype=torch.long, device=dev)
+    patch_of[perm] = torch.arange(PIX, device=dev) // 32
+    shift = torch.arange(PIX // 32, device=dev, dtype=torch.int32)
+    n = {k: torch.zeros(4, dtype=torch.long, device=dev)
+         for k in ("lane", "lane culled", "warp strip", "warp patch mask")}
+    unsound = 0
+    for t0 in range(0, ntiles, G):
+        tiles = torch.arange(t0, min(t0 + G, ntiles), device=dev)
+        rec, power, _, _ = _pair_geometry(records, starts, tiles, S, ntx,
+                                          view_rows)
+        xp = exit_pos[tiles]                                     # (G, 256)
+        walked = slot[None] < n_eff[tiles, None]                 # (G, S)
+        before = slot[None, :, None] < xp[:, None, :]            # (G, S, 256)
+        past = before & (power <= 0.0)
+        alpha = torch.clamp(
+            rec[..., 5, None] * torch.exp(torch.where(past, power, -100.0)),
+            max=ALPHA_MAX)
+        con = past & (alpha >= ALPHA_MIN)
+        del power, alpha
+        bits = ((patch_masks(rec, tiles, ntx, view_rows)[..., None] >> shift)
+                & 1).bool()                                      # (G, S, 8)
+        warp_eff = xp[:, perm].view(-1, 8, 32).amax(dim=-1)      # (G, 8)
+        walk = bits & (slot[None, :, None] < warp_eff[:, None])  # (G, S, 8)
+        on = walk[..., patch_of]                                 # (G, S, 256)
+        unsound += int((con & ~bits[..., patch_of]).sum())
+        level = (before.to(torch.int8) + past.to(torch.int8)
+                 + con.to(torch.int8))                           # 0..3
+        strip = level.view(*level.shape[:2], 8, 32).amax(dim=-1)
+        patch = level[..., perm].view(*level.shape[:2], 8, 32).amax(dim=-1)
+        n["lane"][0] += walked.sum() * PIX
+        n["lane culled"][0] += walk.sum() * 32
+        n["warp strip"][0] += walked.sum() * 8
+        n["warp patch mask"][0] += walk.sum()
+        for k, o in enumerate((before, past, con)):
+            n["lane"][k + 1] += o.sum()
+            n["lane culled"][k + 1] += (o & on).sum()
+            n["warp strip"][k + 1] += (strip > k).sum()
+            n["warp patch mask"][k + 1] += ((patch > k) & walk).sum()
+    check(unsound == 0, f"patch_masks cleared the bit of {unsound} "
+          f"contributing pairs")
+    out = {k: [int(x) for x in v.tolist()] for k, v in n.items()}
+    out["staged"] = int(n_eff.sum())
+    return out
+
+
+def c_report(tag: str, label: str, records, starts, counts, ntx: int,
+             view_rows: int, state, depth_grad: bool, ms: float) -> dict:
+    """Kernel C's work on these inputs (``c_work``), its lane bound (every
+    pair before its pixel's exit) and culled lane bound (only those in
+    patches whose mask bit is set: the table takes the lower), and the
+    mask's overhead (``C_MASK`` per staged record, in no bound), printed.
+    Bytes: the records walked and drec written once, gtiles + exit state
+    per tile, the segment table."""
+    w = c_work(records, starts, counts, ntx, view_rows, state)
+    per_pair = (C_EVAL, C_EXP, C_CONTRIB[depth_grad], C_SUM)
+    nbytes = (w["staged"] * 40 + records.shape[0] * 40
+              + counts.shape[0] * (7 * 256 * 4 + 8))
+    mask_ops = (w["staged"] * C_MASK[0], w["staged"] * C_MASK[1])
+    mask_t = bound_times(*mask_ops, 0)[1]
+    lane_t, lane, lane_by = bound_times(*bwd_ops(w["lane"], per_pair),
+                                        nbytes)
+    culled_t, culled, culled_by = bound_times(
+        *bwd_ops(w["lane culled"], per_pair), nbytes)
+    print(f"{tag} kernel C {label}: pairs [walked, evaluated, past power "
+          f"gate, contributing] {w['lane']}, in masked-in patches "
+          f"{w['lane culled']}; (record, warp) steps by furthest outcome: "
+          f"16x2 strips from the block's largest exit (earlier design) "
+          f"{w['warp strip']}, 8x4 patches with the mask from the warp's "
+          f"own {w['warp patch mask']}; {w['staged']} records staged",
+          flush=True)
+    print(f"{tag} kernel C {label}: {ms:.3f} ms; lane bound {lane:.4f} ms ("
+          + ", ".join(f"{k} {v:.4f}" for k, v in lane_t.items())
+          + f"), culled lane bound {culled:.4f} ms ("
+          + ", ".join(f"{k} {v:.4f}" for k, v in culled_t.items())
+          + f"); the mask's overhead {mask_t:.4f} ms ({mask_ops[0]} fp32 + "
+          f"{mask_ops[1]} MUFU lane instructions, in no bound)", flush=True)
+    bound, by = min((lane, lane_by), (culled, culled_by))
+    return {"work": w, "bound": bound, "by": by, "lane bound": lane,
+            "culled bound": culled, "mask overhead": mask_t}
+
+
+def e_report(tag: str, label: str, work: dict, n_walked: int, ntiles: int,
+             ms: float) -> dict:
+    """Kernel E's two bounds on inputs whose ``fwd_work`` is ``work`` (E
+    walks kernel A's pairs, patches and mask: ``E_*`` per pair), and the
+    mask's overhead (``A_MASK`` per staged record, kernel A's code, in no
+    bound), printed. Bytes: records and tangents walked, starts + counts
+    in, 7 + 5 rows out."""
+    nbytes = n_walked * 80 + ntiles * ((7 + 5) * 256 * 4 + 8)
+    mask_t = bound_times(n_walked * A_MASK[0], n_walked * A_MASK[1], 0)[1]
+    lane_t, lane, lane_by = bound_times(*fwd_ops(work["lane"], E_PER_PAIR),
+                                        nbytes)
+    culled_t, culled, culled_by = bound_times(
+        *fwd_ops(work["lane culled"], E_PER_PAIR), nbytes)
+    print(f"{tag} kernel E {label}: pairs [evaluated, past power gate, past "
+          f"1/255 gate, accumulated] {work['lane'][:4]}, in masked-in "
+          f"patches {work['lane culled']}; (record, warp) steps by furthest "
+          f"outcome, 16x2 strips (earlier design) {work['warp strip']}, 8x4 "
+          f"patches with the mask {work['warp patch mask']}; {n_walked} "
+          f"records staged; {ms:.3f} ms; lane bound {lane:.4f} ms ("
+          + ", ".join(f"{k} {v:.4f}" for k, v in lane_t.items())
+          + f"), culled lane bound {culled:.4f} ms ("
+          + ", ".join(f"{k} {v:.4f}" for k, v in culled_t.items())
+          + f"); the mask's overhead {mask_t:.4f} ms (in no bound)",
+          flush=True)
+    bound, by = min((lane, lane_by), (culled, culled_by))
+    return {"bound": bound, "by": by, "lane bound": lane,
+            "culled bound": culled, "mask overhead": mask_t}
+
+
+def c_vs_plain(label: str, records, starts, counts, ntx: int,
+               view_rows: int, gtiles, state, depth_grad) -> float:
+    """Kernel C on a path's own inputs against its plain version per field
+    (knife-edge bound relative to max |plain|), and bit for bit against
+    itself and against the guard C<MASK=false> (every patch bit set, so a
+    patch bit that C clears for a contributing pair shows); printed.
+    Returns max |Δ|."""
+    import torch
+
+    from gslm_tpu_torch.ops import rasterize_cuda as rc
+    args = (records, starts, counts, ntx, view_rows, gtiles, state,
+            depth_grad)
+    got = rc.composite_tiles_bwd(*args)
+    again = rc.composite_tiles_bwd(*args)
+    guard = rc.composite_tiles_bwd_unmasked(*args)
+    want = rc.composite_tiles_bwd_plain(*args[:6], depth_grad)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"kernel C is not bitwise repeatable on "
+          f"{label}")
+    check(torch.equal(got.view(torch.int32), guard.view(torch.int32)),
+          f"kernel C differs from the guard C<MASK=false>'s on {label}")
+    del again, guard
+    check(bool(torch.isfinite(got).all()), f"kernel C gave non-finite values "
+          f"on {label}")
+    err, rel = 0.0, []
+    for f in range(rc.NF):
+        scale = float(want[:, f].abs().max()) + 1e-30
+        ok, e = knife_edge_ok(got[:, f], want[:, f], scale)
+        check(ok, f"kernel C disagrees with its plain version on {label}, "
+                  f"field {f}")
+        err = max(err, e)
+        rel.append(e / scale)
+    print(f"kernel C vs plain ({label}, {records.shape[0]} records, "
+          f"{counts.shape[0]} tiles, depth_grad {depth_grad}): max|d| "
+          f"{err:.3g}; max|d|/max|plain| per field "
+          f"{[float(f'{r:.3g}') for r in rel]}; two runs bitwise equal, "
+          f"and bitwise equal to the guard C<MASK=false>'s", flush=True)
+    return err
+
+
+def guard_check(label: str, e_tiles, e_dot, a_tiles, records, tangents,
+                starts, counts, ntx: int, view_rows: int,
+                rects=None) -> None:
+    """Kernel E's primal ``e_tiles`` and kernel A's rows ``a_tiles`` on the
+    same inputs, each ``torch.equal`` to the guard E<MASK=false>'s (every
+    record through pair_alpha, no patch mask), and E's tangent ``e_dot``
+    within 1e-6 of max |guard| per row; printed."""
+    import torch
+
+    from gslm_tpu_torch.ops import rasterize_cuda as rc
+    guard, guard_dot = rc.composite_tiles_jvp_unmasked(
+        records, tangents, starts, counts, ntx, view_rows, rects)
+    torch.cuda.synchronize()
+    check(torch.equal(e_tiles, guard), f"kernel E's primal differs from the "
+          f"guard E<MASK=false>'s on {label}")
+    check(torch.equal(a_tiles, guard), f"kernel A's rows differ from the "
+          f"guard E<MASK=false>'s on {label}")
+    rel = [float((e_dot[:, r] - guard_dot[:, r]).abs().max())
+           / (float(guard_dot[:, r].abs().max()) + 1e-30)
+           for r in range(rc.IMG_ROWS)]
+    check(max(rel) <= 1e-6, f"kernel E's tangent differs from the guard's "
+          f"on {label}: {rel}")
+    print(f"guard E<MASK=false> on {label}: kernel A's rows and kernel E's "
+          f"primal rows 0-6 bitwise equal to it; E's tangent "
+          + ("bitwise equal" if torch.equal(e_dot, guard_dot) else
+             f"max|d|/max|guard| per row {[float(f'{r:.3g}') for r in rel]}"),
+          flush=True)
 
 
 def bound_times(fp32: int, mufu: int, nbytes: int) -> tuple[dict, float,
@@ -533,26 +761,49 @@ def bound_times(fp32: int, mufu: int, nbytes: int) -> tuple[dict, float,
     return times, ms, "bytes" if ms == times["bytes"] else "operations"
 
 
-def fwd_attrs(lib) -> dict:
+def kernel_attrs(lib, fn: str, instances: tuple) -> dict:
     """Registers per thread, static shared memory per block and resident
-    blocks per SM of a kernel A library's two instantiations."""
+    256-thread blocks per SM of each instantiation (``instances``, in the
+    order the library's ``fn`` reports them)."""
     import ctypes
 
     from gslm_tpu_torch import _build
-    out = (ctypes.c_int * 6)()
-    _build.check(lib.composite_fwd_attrs(ctypes.addressof(out)),
-                 "composite_fwd_attrs")
+    out = (ctypes.c_int * (3 * len(instances)))()
+    _build.check(getattr(lib, fn)(ctypes.addressof(out)), fn)
     return {inst: {"registers": out[3 * k], "shared_bytes": out[3 * k + 1],
                    "blocks_per_sm": out[3 * k + 2]}
-            for k, inst in enumerate(("bucket 1", "rects"))}
+            for k, inst in enumerate(instances)}
+
+
+def fwd_attrs(lib) -> dict:
+    """``kernel_attrs`` of a kernel A library's two instantiations."""
+    return kernel_attrs(lib, "composite_fwd_attrs", ("bucket 1", "rects"))
+
+
+def bwd_attrs(lib) -> dict:
+    """``kernel_attrs`` of kernel C's two instantiations."""
+    return kernel_attrs(lib, "composite_bwd_attrs",
+                        ("depth_grad", "no depth_grad"))
+
+
+def jvp_attrs(lib) -> dict:
+    """``kernel_attrs`` of kernel E's four instantiations."""
+    return kernel_attrs(lib, "composite_jvp_attrs",
+                        ("bucket 1", "rects", "guard (MASK=false)",
+                         "guard (MASK=false), rects"))
 
 
 def main() -> int:
+    import importlib.util
+    if importlib.util.find_spec("gslm_tpu_torch") is None:
+        print(f"chip_smoke: the package gslm_tpu_torch is not beside "
+              f"{os.path.abspath(__file__)}: run the script from a checkout "
+              f"of the repository", file=sys.stderr)
+        return 1
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     run(torch.device("cuda"), N_GAUSS, H, W)
     return 0
 
@@ -573,16 +824,21 @@ def run(dev, n_gauss: int, height: int, width: int) -> None:
     _build.build_all(verbose=True)
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a, "
           f"{len(_build.SIGNATURES)} kernels in parallel)", flush=True)
-    attrs = fwd_attrs(_build.load("composite_fwd"))
-    print(f"kernel A registers, static shared bytes, resident 256-thread "
-          f"blocks per SM: {attrs}", flush=True)
+    attrs = {"A": fwd_attrs(_build.load("composite_fwd")),
+             "C": bwd_attrs(_build.load("composite_bwd")),
+             "E": jvp_attrs(_build.load("composite_jvp"))}
+    for k, v in attrs.items():
+        print(f"kernel {k} registers, static shared bytes, resident "
+              f"256-thread blocks per SM: {v}", flush=True)
 
     tag = f"[{card}]"
     kernels = serve_phase(dev, n_gauss, height, width, tag)
-    kernels[0]["attrs"] = attrs
     kernels.append(train_phase(dev, n_gauss, height, width, tag, kernels))
     kernels.append(lm_phase(dev, n_gauss, height, width, tag, kernels))
     kernels.insert(3, bucket_phase(dev, M1_N, height, width, tag, kernels))
+    for entry, k in zip(kernels, "ABCDE"):
+        if k in attrs:
+            entry["attrs"] = attrs[k]
     sass_totals()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -880,24 +1136,7 @@ def train_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     # ---- kernel C against its plain version, and against itself ---------
     args = captured[0]
     rec, st, cn, ntx, vrows, gtiles, xstate, depth_grad = args
-    got = real_bwd(*args)
-    again = real_bwd(*args)
-    want = rc.composite_tiles_bwd_plain(rec, st, cn, ntx, vrows, gtiles,
-                                        depth_grad)
-    torch.cuda.synchronize()
-    check(torch.equal(got, again), "kernel C is not bitwise repeatable")
-    check(bool(torch.isfinite(got).all()), "kernel C gave non-finite values")
-    c_err, c_rel = 0.0, []
-    for f in range(rc.NF):
-        scale = float(want[:, f].abs().max()) + 1e-30
-        ok, e = knife_edge_ok(got[:, f], want[:, f], scale)
-        check(ok, f"kernel C disagrees with its plain version, field {f}")
-        c_err = max(c_err, e)
-        c_rel.append(e / scale)
-    print(f"kernel C vs plain ({rec.shape[0]} records, {cn.shape[0]} tiles): "
-          f"max|d| {c_err:.3g}; max|d|/max|plain| per field "
-          f"{[float(f'{r:.3g}') for r in c_rel]}; two runs bitwise equal",
-          flush=True)
+    c_err = c_vs_plain("training view", *args)
 
     gen = torch.Generator(dev).manual_seed(3)
     x = torch.rand(1, 15, height, width, device=dev, generator=gen,
@@ -977,8 +1216,8 @@ def train_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     c_plain_ms = cuda_ms(lambda: rc.composite_tiles_bwd_plain(
         rec, st, cn, ntx, vrows, gtiles, depth_grad), 2)
 
-    work, c_records, c_fp32, c_mufu, c_bytes, c_times, c_bound, c_by = \
-        c_cost(rec, st, cn, ntx, vrows, xstate)
+    rcc = c_report(tag, "(training view)", rec, st, cn, ntx, vrows, xstate,
+                   depth_grad, t["kernel C"])
     ra = a_report(tag, "(training view)", rec, st, cn, ntx, vrows,
                   real_fwd(rec, st, cn, ntx, vrows)[1],
                   t["kernel A (training view)"])
@@ -990,12 +1229,9 @@ def train_phase(dev, n_gauss: int, height: int, width: int, tag: str,
           f"busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
           f"({busy_ms / wall_ms:.3f}; the profiler adds host time)",
           flush=True)
-    print(f"{tag} kernel C pairs [walked, evaluated, past power gate, "
-          f"contributing] {work}, {c_records} of {rec.shape[0]} records "
-          f"walked: {c_fp32} fp32 + {c_mufu} MUFU lane instructions, "
-          f"{c_bytes} B; bound ms "
-          + ", ".join(f"{k} {v:.4f}" for k, v in c_times.items())
-          + f"; kernel C {t['kernel C']:.3f} ms, plain {c_plain_ms:.3f} ms",
+    print(f"{tag} kernel C (training view): {rcc['work']['staged']} of "
+          f"{rec.shape[0]} records staged; kernel C {t['kernel C']:.3f} ms "
+          f"vs bound {rcc['bound']:.4f} ms, plain {c_plain_ms:.3f} ms",
           flush=True)
     print(f"{tag} kernel A on the training view: "
           f"{t['kernel A (training view)']:.3f} ms vs bound "
@@ -1015,8 +1251,11 @@ def train_phase(dev, n_gauss: int, height: int, width: int, tag: str,
             "launches": launches["C"],
             "launches_by_path": {"serve": 0, "train_step": launches["C"]},
             "max_abs_err": c_err, "ms": t["kernel C"],
-            "plain_ms": c_plain_ms, "bound_ms": c_bound,
-            "bound_by": c_by, "library_ms": None}
+            "plain_ms": c_plain_ms, "bound_ms": rcc["bound"],
+            "bound_by": rcc["by"], "library_ms": None,
+            "lane_bound_ms": rcc["lane bound"],
+            "culled_bound_ms": rcc["culled bound"],
+            "mask_overhead_ms": rcc["mask overhead"]}
 
 
 def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
@@ -1093,6 +1332,9 @@ def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     blur_same.launches = 0
     rc.composite_tiles_bwd.launches = 0
     rc.composite_tiles_jvp.launches = 0
+    guards = (rc.composite_tiles_bwd_unmasked, rc.composite_tiles_jvp_unmasked)
+    for f in guards:
+        f.launches = 0
     t0 = time.perf_counter()
     new, info = lm_outer_step(params, params.alive, window, val, bg, **kw)
     torch.cuda.synchronize()
@@ -1103,6 +1345,8 @@ def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     print(f"lm_outer_step launches: {launches}", flush=True)
     check(launches == LM_LAUNCHES,
           f"lm_outer_step launches {launches}: expected {LM_LAUNCHES}")
+    check(all(f.launches == 0 for f in guards),
+          "lm_outer_step launched a guard kernel")
     norms = {g: float(v) for g, v in info["step_norms"].items()}
     best = float(info["best_val_loss"])
     print(f"lm_outer_step (window {win}, {len(vidx)} val views): start loss "
@@ -1139,9 +1383,8 @@ def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
           f"{cn.shape[0]} tiles): max|d| {e_vs_a:.3g}"
           f"{' (bitwise equal)' if torch.equal(got, fwd) else ''}",
           flush=True)
-    # E walks 16x2 strips with no patch mask: it holds A's patches and mask
-    # to the pair-by-pair walk
     check(torch.equal(got, fwd), "kernel E's primal differs from kernel A's")
+    guard_check("LM window", got, got_dot, fwd, rec, tng, st, cn, ntx, nty)
     check(torch.equal(got, again) and torch.equal(got_dot, again_dot),
           "kernel E is not bitwise repeatable")
     check(bool(torch.isfinite(got_dot).all()), "kernel E: non-finite tangent")
@@ -1177,6 +1420,7 @@ def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     print(f"adjoint <Jv,u> {lhs:.8g} vs <v,J^T u> {rhs:.8g}: relative "
           f"{adj:.3g}", flush=True)
     check(adj <= 1e-4, "J·v and Jᵀ·u are not adjoint")
+    c_window_err = c_vs_plain("LM window", *c_args)
 
     # ---- J·v through the kernels against J·v through the plain compositor
     rc.composite_tiles_jvp = rc.composite_tiles_jvp_plain
@@ -1239,36 +1483,22 @@ def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
          "kernel C (window)": cuda_ms(
              lambda: rc.composite_tiles_bwd(*c_args), 10)}
     n_walked = int(walked.long().sum())
-    ntiles = cn.shape[0]
     ra = a_report(tag, "(LM window)", rec, st, cn, ntx, nty, walked,
                   t["kernel A (window)"])
-    work = ra["work"]["lane"]
-    e_fp32, e_mufu = fwd_ops(work, E_PER_PAIR)
-    # records and tangents walked, starts + counts in, 7 + 5 rows out
-    e_bytes = n_walked * 80 + ntiles * ((rc.OUT_ROWS + rc.IMG_ROWS) * 256 * 4
-                                        + 8)
-    e_times, e_bound, e_by = bound_times(e_fp32, e_mufu, e_bytes)
-    a_window_bound = ra["bound"]
-    c_work, c_records, *_, c_window_bound, _ = c_cost(*c_args[:5],
-                                                      c_args[6])
+    re_ = e_report(tag, "(LM window)", ra["work"], n_walked, cn.shape[0],
+                   t["kernel E (window)"])
+    rcw = c_report(tag, "(LM window, one Jᵀ·u)", *c_args[:5], c_args[6],
+                   c_args[7], t["kernel C (window)"])
     print(f"{tag} lm_outer_step 5x{width}x{height} window, {len(vidx)} val "
           f"views: {step_ms:.1f} ms median of 2 (runs "
           f"{[round(x, 1) for x in step_times]})", flush=True)
     print(f"{tag} lm_outer_step stages (ms): "
           + ", ".join(f"{k} {x:.3f}" for k, x in t.items()), flush=True)
-    print(f"{tag} kernel E pairs [evaluated, past power gate, past 1/255 "
-          f"gate, accumulated] {work}, {n_walked} of {rec.shape[0]} records "
-          f"walked: {e_fp32} fp32 + {e_mufu} MUFU lane instructions, "
-          f"{e_bytes} B; bound ms "
-          + ", ".join(f"{k} {x:.4f}" for k, x in e_times.items())
-          + f"; kernel E {t['kernel E (window)']:.3f} ms, plain "
-          f"{e_plain_ms:.3f} ms", flush=True)
-    print(f"{tag} kernel A on the window (its pairs are E's): "
-          f"{t['kernel A (window)']:.3f} ms vs bound {a_window_bound:.4f} ms;"
-          f" kernel C on the window (one Jᵀ·u): pairs [walked, evaluated, "
-          f"past power gate, contributing] {c_work}, {c_records} records "
-          f"walked, {t['kernel C (window)']:.3f} ms vs bound "
-          f"{c_window_bound:.4f} ms", flush=True)
+    print(f"{tag} on the window: kernel E {t['kernel E (window)']:.3f} ms vs "
+          f"bound {re_['bound']:.4f} ms, plain {e_plain_ms:.3f} ms; kernel A "
+          f"{t['kernel A (window)']:.3f} ms vs bound {ra['bound']:.4f} ms; "
+          f"kernel C {t['kernel C (window)']:.3f} ms vs bound "
+          f"{rcw['bound']:.4f} ms", flush=True)
     del ops
     n_kern, busy_ms, wall_ms = device_busy(lambda: lm_outer_step(
         params, params.alive, window, val, bg, **kw), cpu=False)
@@ -1280,9 +1510,12 @@ def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
         entry["launches_by_path"]["lm_outer_step"] = launches[key]
         entry["launches"] += launches[key]
     kernels[0]["ms_lm_window"] = t["kernel A (window)"]
-    kernels[0]["bound_ms_lm_window"] = a_window_bound
+    kernels[0]["bound_ms_lm_window"] = ra["bound"]
     kernels[2]["ms_lm_window"] = t["kernel C (window)"]
-    kernels[2]["bound_ms_lm_window"] = c_window_bound
+    kernels[2]["bound_ms_lm_window"] = rcw["bound"]
+    kernels[2]["lane_bound_ms_lm_window"] = rcw["lane bound"]
+    kernels[2]["mask_overhead_ms_lm_window"] = rcw["mask overhead"]
+    kernels[2]["max_abs_err_lm_window"] = c_window_err
     return {"name": "composite_jvp", "route": "cuda",
             "source": "gslm_tpu_torch/csrc/composite_jvp.cu",
             "replaces": "gslm_tpu/ops/rasterize_pallas_jvp.py:172",
@@ -1291,7 +1524,16 @@ def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
                                  "lm_outer_step": launches["E"]},
             "max_abs_err": e_err, "primal_vs_A_max_abs_err": e_vs_a,
             "ms": t["kernel E (window)"], "plain_ms": e_plain_ms,
-            "bound_ms": e_bound, "bound_by": e_by, "library_ms": None}
+            "bound_ms": re_["bound"], "bound_by": re_["by"],
+            "library_ms": None, "lane_bound_ms": re_["lane bound"],
+            "culled_bound_ms": re_["culled bound"],
+            "mask_overhead_ms": re_["mask overhead"]}
+
+
+# the bool template parameters of each kernel, in order, for SASS labels
+TEMPLATE_PARAMS = {"composite_fwd_kernel": ("RECT",),
+                   "composite_bwd_kernel": ("DEPTH", "MASK"),
+                   "composite_jvp_kernel": ("RECT", "MASK")}
 
 
 def sass_totals(paths: dict | None = None,
@@ -1334,11 +1576,17 @@ def sass_totals(paths: dict | None = None,
                     if ins.group(3) in ("BRA", "EXIT", "RET", "BRX", "CALL"):
                         blocks.append((f"after {ins.group(1)}", []))
             ops = collections.Counter(op for _, b in blocks for _, op, _ in b)
-            m = re.search(r"(\w+?_kernel)(ILb([01])E)?", fn)
+            m = re.search(r"(\w+?_kernel)((?:ILb[01]E|Lb[01]E)*)", fn)
             kernel = m.group(1).split("_cu_")[-1] if m else fn
             kernel = re.sub(r"^[0-9a-f]+\d+", "", kernel)
-            if m and m.group(3):
-                kernel += f"<RECT={'true' if m.group(3) == '1' else 'false'}>"
+            flags = re.findall(r"Lb([01])E", m.group(2)) if m else []
+            if flags:
+                names = TEMPLATE_PARAMS.get(kernel, ())
+                if len(names) != len(flags):
+                    names = [f"#{k}" for k in range(len(flags))]
+                kernel += "<" + ", ".join(
+                    f"{nm}={'true' if b == '1' else 'false'}"
+                    for nm, b in zip(names, flags)) + ">"
             print(f"SASS {name}: {kernel} {sum(ops.values())} instructions; "
                   + ", ".join(f"{k} {ops[k]}" for k in ("FFMA", "FADD",
                                                         "FMUL", "MUFU")),
@@ -1476,15 +1724,19 @@ def bucket_phase(dev, n_gauss: int, height: int, width: int, tag: str,
               flush=True)
         check(ok, "kernel A with rects disagrees with its plain version")
         del want
-        # E<RECT> walks 16x2 strips with the rect gate and no patch mask
-        got_e, _ = rc.composite_tiles_jvp(
-            tr.records, torch.zeros_like(tr.records), tr.starts, tr.counts,
-            ntx, nty, rects)
+        # E<RECT> and A<RECT> against each other and the guard
+        tng = (torch.randn(tr.records.shape, device=dev,
+                           generator=torch.Generator(dev).manual_seed(2))
+               * tr.records.std(dim=0, keepdim=True))
+        got_e, dot_e = rc.composite_tiles_jvp(tr.records, tng, tr.starts,
+                                              tr.counts, ntx, nty, rects)
         check(torch.equal(got_e, got),
               "kernel E's primal differs from kernel A's at bucket 4")
         print(f"kernel E vs kernel A (rect gate), primal rows 0-6: bitwise "
               f"equal", flush=True)
-        del got_e
+        guard_check("m1 bucket 4", got_e, dot_e, got, tr.records, tng,
+                    tr.starts, tr.counts, ntx, nty, rects)
+        del got_e, dot_e, tng
 
     # ---- 4. train_step at bucket 4, kernel D's inputs captured ----------
     shift = torch.tensor(np.random.default_rng(1).normal(
@@ -1685,8 +1937,10 @@ def bucket_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     a_work, a_bound = ra["work"]["lane"], ra["bound"]
     bid = rc.bucket_of_tile(ntx, nty, nty, buckets.bucket, dev)
     d_work, d_records, d_fp32, d_mufu, d_bytes, d_times, d_bound, d_by = \
-        c_cost(rec, buckets.bstarts[bid], buckets.bcounts[bid], ntx, nty,
+        d_cost(rec, buckets.bstarts[bid], buckets.bcounts[bid], ntx, nty,
                xstate, buckets)
+    rc1 = c_report(tag, "(m1 bucket 1)", *c_args[:5], c_args[6], c_args[7],
+                   t1["kernel C"])
     for name, t in (("bucket 4", t4), ("bucket 1", t1)):
         print(f"{tag} m1 {name} (ms, medians): "
               + ", ".join(f"{k} {x:.3f}" for k, x in t.items()), flush=True)
@@ -1723,6 +1977,8 @@ def bucket_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     kernels[0]["ms_m1_bucket4"] = t4["kernel A"]
     kernels[0]["bound_ms_m1_bucket4"] = a_bound
     kernels[0]["max_abs_err_m1_bucket4"] = a_err
+    kernels[2]["ms_m1_bucket1"] = t1["kernel C"]
+    kernels[2]["bound_ms_m1_bucket1"] = rc1["bound"]
     return {"name": "composite_bucket_bwd", "route": "cuda",
             "source": "gslm_tpu_torch/csrc/composite_bucket_bwd.cu",
             "replaces": "gslm_tpu/ops/rasterize_pallas.py:928",

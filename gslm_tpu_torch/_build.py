@@ -35,11 +35,17 @@ SIGNATURES = {
                                         _VP, _VP],
                       "composite_fwd_attrs": [_VP]},
     "composite_bwd": {"composite_bwd": [_VP, _VP, _VP, _I, _I, _I, _VP, _VP,
-                                        _I, _VP, _VP]},
+                                        _I, _VP, _VP],
+                      "composite_bwd_unmasked": [_VP, _VP, _VP, _I, _I, _I,
+                                                 _VP, _VP, _I, _VP, _VP],
+                      "composite_bwd_attrs": [_VP]},
     "composite_bucket_bwd": {"composite_bucket_bwd": [
         _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP, _VP, _I, _VP, _VP]},
     "composite_jvp": {"composite_jvp": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I,
-                                        _VP, _VP, _VP]},
+                                        _VP, _VP, _VP],
+                      "composite_jvp_unmasked": [_VP, _VP, _VP, _VP, _VP, _I,
+                                                 _I, _I, _VP, _VP, _VP],
+                      "composite_jvp_attrs": [_VP]},
     "blur": {"blur_same": [_VP, _VP, _I, _I, _I, _VP, _I, _VP]},
 }
 

@@ -1,6 +1,8 @@
-// The reverse walk of one tile over its records, shared by kernel C
-// (composite_bwd.cu: one tile per block) and kernel D
-// (composite_bucket_bwd.cu: a bucket's member tiles one after another).
+// The reverse walk of one tile over its records under 16x2 strips, kernel
+// D's (composite_bucket_bwd.cu: a bucket's member tiles one after another).
+// Kernel C walked it too before it moved to 8x4 patches, the patch mask and
+// a reduce-scatter sum (composite_bwd.cu); D keeps this walk until its own
+// redesign.
 //
 // Each thread walks its own pixel's records in REVERSE from the block's
 // largest exit position, recovering T_before of each contributing record by

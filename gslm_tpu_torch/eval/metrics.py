@@ -1,7 +1,7 @@
 """Quality metrics over rendered sets: SSIM / PSNR (gslm_tpu/eval/metrics.py).
 
-LPIPS needs weights that are not in the repository; it is reported as
-null, as the JAX package does without them."""
+LPIPS is not ported yet: it is reported as null, as the JAX package
+reports it without its weights."""
 
 from __future__ import annotations
 
@@ -35,10 +35,14 @@ def pair_metrics(render: torch.Tensor, gt: torch.Tensor):
     return ssim(render[None], gt[None]), psnr(render, gt)
 
 
-def evaluate_dir(method_dir: str, device=None):
+def evaluate_dir(method_dir: str, use_lpips: bool = True, *, device=None):
     """Metrics over one ours_<iter> directory (``renders/`` and ``gt/``).
-    Returns (summary, per_view) in the JAX package's schema."""
+    Returns (summary, per_view) in the JAX package's schema; LPIPS is null
+    (with a printed note when ``use_lpips`` asks for it)."""
     dev = resolve_device(device)
+    if use_lpips:
+        print("LPIPS is not ported to gslm_tpu_torch yet: reporting LPIPS: "
+              "null")
     names, renders, gts = read_images(os.path.join(method_dir, "renders"),
                                       os.path.join(method_dir, "gt"))
     ssims, psnrs = [], []

@@ -37,9 +37,13 @@ thus serves J·v and Jᵀ·u; records that are dual AND record autograd raise.
 ``composite_tiles`` / ``composite_tiles_bwd`` /
 ``composite_tiles_bucket_bwd`` / ``composite_tiles_jvp`` launch their
 kernels for CUDA tensors and take their plain versions (the same names with
-``_plain``) for CPU tensors only. Kernel A gives each warp an 8x4 pixel
-patch of the tile (``PATCH_PIXELS``) and skips the records its per-record
-patch mask rules out; ``patch_masks`` is that mask's plain version.
+``_plain``) for CPU tensors only. Kernels A, C and E give each warp an 8x4
+pixel patch of the tile (``PATCH_PIXELS``) and skip the records their
+per-record patch mask rules out; ``patch_masks`` is that mask's plain
+version. ``composite_tiles_jvp_unmasked`` is kernel E without the mask, the
+guard the tests and chip_smoke.py hold A and E to bit for bit, and
+``composite_tiles_bwd_unmasked`` kernel C without it, the guard they hold C
+to; no render path calls either.
 """
 
 from __future__ import annotations
@@ -406,12 +410,48 @@ def composite_tiles_bwd(records: torch.Tensor, starts: torch.Tensor,
     cotangent ``gtiles`` (ntiles, 5, 256) and kernel A's exit state
     ``state`` (ntiles, 2, 256).
 
-    A CUDA tensor goes through kernel C (or the call raises); a CPU tensor
+    A CUDA tensor goes through kernel C (kernel A's 8x4 patches and patch
+    mask, a fixed-order per-record sum; or the call raises); a CPU tensor
     takes the plain version, which recomputes the forward and ignores
     ``state``."""
     if records.device.type == "cpu":
         return composite_tiles_bwd_plain(records, starts, counts, ntx,
                                          view_rows, gtiles, depth_grad)
+    drec = _bwd_launch("composite_bwd", records, starts, counts, ntx,
+                       view_rows, gtiles, state, depth_grad)
+    composite_tiles_bwd.launches += 1
+    return drec
+
+
+composite_tiles_bwd.launches = 0   # kernel C launches in this process
+
+
+def composite_tiles_bwd_unmasked(records: torch.Tensor, starts: torch.Tensor,
+                                 counts: torch.Tensor, ntx: int,
+                                 view_rows: int, gtiles: torch.Tensor,
+                                 state: torch.Tensor,
+                                 depth_grad: bool = True) -> torch.Tensor:
+    """``composite_tiles_bwd`` through the guard C<MASK=false>: every patch
+    bit set, so every warp walks every record below its own largest exit.
+    Kernel C's drec is held equal to its drec bit for bit (the tests,
+    chip_smoke.py); no render path calls it. A CPU tensor takes the plain
+    version."""
+    if records.device.type == "cpu":
+        return composite_tiles_bwd_plain(records, starts, counts, ntx,
+                                         view_rows, gtiles, depth_grad)
+    drec = _bwd_launch("composite_bwd_unmasked", records, starts, counts, ntx,
+                       view_rows, gtiles, state, depth_grad)
+    composite_tiles_bwd_unmasked.launches += 1
+    return drec
+
+
+composite_tiles_bwd_unmasked.launches = 0   # C<MASK=false> launches
+
+
+def _bwd_launch(fn: str, records, starts, counts, ntx: int, view_rows: int,
+                gtiles, state, depth_grad: bool) -> torch.Tensor:
+    """Kernel C's entry ``fn`` of the composite_bwd library on CUDA
+    tensors: drec (L, 10)."""
     records, starts, counts = _check_records(records, starts, counts)
     ntiles = counts.shape[0]
     gtiles, state = _check_tile_rows(records, ntiles,
@@ -419,17 +459,13 @@ def composite_tiles_bwd(records: torch.Tensor, starts: torch.Tensor,
                                      state=(state, 2))
     drec = torch.empty_like(records)
     lib = _build.load("composite_bwd")
-    rc = lib.composite_bwd(records.data_ptr(), starts.data_ptr(),
-                           counts.data_ptr(), ntiles, ntx, view_rows,
-                           gtiles.data_ptr(), state.data_ptr(),
-                           int(depth_grad), drec.data_ptr(),
-                           torch.cuda.current_stream(records.device).cuda_stream)
-    _build.check(rc, "composite_bwd")
-    composite_tiles_bwd.launches += 1
+    rc = getattr(lib, fn)(records.data_ptr(), starts.data_ptr(),
+                          counts.data_ptr(), ntiles, ntx, view_rows,
+                          gtiles.data_ptr(), state.data_ptr(),
+                          int(depth_grad), drec.data_ptr(),
+                          torch.cuda.current_stream(records.device).cuda_stream)
+    _build.check(rc, fn)
     return drec
-
-
-composite_tiles_bwd.launches = 0   # kernel C launches in this process
 
 
 def composite_tiles_bucket_bwd_plain(records: torch.Tensor,
@@ -532,19 +568,10 @@ def composite_tiles_jvp_plain(records: torch.Tensor, tangents: torch.Tensor,
     return out, out_dot
 
 
-def composite_tiles_jvp(records: torch.Tensor, tangents: torch.Tensor,
-                        starts: torch.Tensor, counts: torch.Tensor, ntx: int,
-                        view_rows: int, rects: torch.Tensor | None = None):
-    """Composite every tile's segment and its tangent along ``tangents``
-    (L, 10) → ``(tiles (ntiles, 7, 256) f32, kernel A's rows; tiles_dot
-    (ntiles, 5, 256) f32 rows [r, g, b, invdepth, t_final])``; ``rects``
-    as for ``composite_tiles``.
-
-    A CUDA tensor goes through kernel E (or the call raises); a CPU tensor
-    takes the plain version."""
-    if records.device.type == "cpu":
-        return composite_tiles_jvp_plain(records, tangents, starts, counts,
-                                         ntx, view_rows, rects)
+def _jvp_launch(fn: str, records, tangents, starts, counts, ntx: int,
+                view_rows: int, rects):
+    """Kernel E's entry ``fn`` of the composite_jvp library on CUDA
+    tensors: ``(tiles (ntiles, 7, 256), tiles_dot (ntiles, 5, 256))``."""
     records, starts, counts = _check_records(records, starts, counts)
     tangents = tangents.contiguous()
     if (tangents.dtype != torch.float32 or tangents.device != records.device
@@ -556,17 +583,57 @@ def composite_tiles_jvp(records: torch.Tensor, tangents: torch.Tensor,
     out = torch.empty(ntiles, OUT_ROWS, PIX, device=records.device)
     out_dot = torch.empty(ntiles, IMG_ROWS, PIX, device=records.device)
     lib = _build.load("composite_jvp")
-    rc = lib.composite_jvp(records.data_ptr(), tangents.data_ptr(),
-                           _rects_ptr(records, rects), starts.data_ptr(),
-                           counts.data_ptr(), ntiles, ntx, view_rows,
-                           out.data_ptr(), out_dot.data_ptr(),
-                           torch.cuda.current_stream(records.device).cuda_stream)
-    _build.check(rc, "composite_jvp")
-    composite_tiles_jvp.launches += 1
+    rc = getattr(lib, fn)(records.data_ptr(), tangents.data_ptr(),
+                          _rects_ptr(records, rects), starts.data_ptr(),
+                          counts.data_ptr(), ntiles, ntx, view_rows,
+                          out.data_ptr(), out_dot.data_ptr(),
+                          torch.cuda.current_stream(records.device).cuda_stream)
+    _build.check(rc, fn)
     return out, out_dot
 
 
+def composite_tiles_jvp(records: torch.Tensor, tangents: torch.Tensor,
+                        starts: torch.Tensor, counts: torch.Tensor, ntx: int,
+                        view_rows: int, rects: torch.Tensor | None = None):
+    """Composite every tile's segment and its tangent along ``tangents``
+    (L, 10) → ``(tiles (ntiles, 7, 256) f32, kernel A's rows; tiles_dot
+    (ntiles, 5, 256) f32 rows [r, g, b, invdepth, t_final])``; ``rects``
+    as for ``composite_tiles``.
+
+    A CUDA tensor goes through kernel E (kernel A's 8x4 patches and patch
+    mask; or the call raises); a CPU tensor takes the plain version."""
+    if records.device.type == "cpu":
+        return composite_tiles_jvp_plain(records, tangents, starts, counts,
+                                         ntx, view_rows, rects)
+    out = _jvp_launch("composite_jvp", records, tangents, starts, counts, ntx,
+                      view_rows, rects)
+    composite_tiles_jvp.launches += 1
+    return out
+
+
 composite_tiles_jvp.launches = 0   # kernel E launches in this process
+
+
+def composite_tiles_jvp_unmasked(records: torch.Tensor,
+                                 tangents: torch.Tensor, starts: torch.Tensor,
+                                 counts: torch.Tensor, ntx: int,
+                                 view_rows: int,
+                                 rects: torch.Tensor | None = None):
+    """``composite_tiles_jvp`` through the guard E<MASK=false>: no patch
+    mask, every record's alpha through ``pair_alpha``. Kernel A's rows and
+    the masked E's primal are held equal to its primal bit for bit (the
+    tests, chip_smoke.py); no render path calls it. A CPU tensor takes the
+    plain version."""
+    if records.device.type == "cpu":
+        return composite_tiles_jvp_plain(records, tangents, starts, counts,
+                                         ntx, view_rows, rects)
+    out = _jvp_launch("composite_jvp_unmasked", records, tangents, starts,
+                      counts, ntx, view_rows, rects)
+    composite_tiles_jvp_unmasked.launches += 1
+    return out
+
+
+composite_tiles_jvp_unmasked.launches = 0   # E<MASK=false> launches
 
 
 def composite_image_rows(records, starts, counts, ntx: int, view_rows: int,

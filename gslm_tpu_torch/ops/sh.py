@@ -1,4 +1,4 @@
-"""Real spherical-harmonics evaluation, degrees 0..3 (gslm_tpu/ops/sh.py).
+"""Real spherical-harmonics evaluation, degrees 0..4 (gslm_tpu/ops/sh.py).
 
 Layout: coefficients are (..., K, 3) with K = (deg+1)^2, dc first."""
 
@@ -13,8 +13,12 @@ C2 = (1.0925484305920792, -1.0925484305920792, 0.31539156525252005,
 C3 = (-0.5900435899266435, 2.890611442640554, -0.4570457994644658,
       0.3731763325901154, -0.4570457994644658, 1.445305721320277,
       -0.5900435899266435)
+C4 = (2.5033429417967046, -1.7701307697799304, 0.9461746957575601,
+      -0.6690465435572892, 0.10578554691520431, -0.6690465435572892,
+      0.47308734787878004, -1.7701307697799304, 0.6258357354491761)
 
-MAX_SH_DEGREE = 3
+# 3DGS trains at degree 3; degree 4 is the reference basis's last
+MAX_SH_DEGREE = 4
 
 
 def num_sh_coeffs(deg: int) -> int:
@@ -48,6 +52,18 @@ def sh_basis(deg: int, dirs: torch.Tensor) -> torch.Tensor:
             C3[4] * x * (4 * zz - xx - yy),
             C3[5] * z * (xx - yy),
             C3[6] * x * (xx - 3 * yy),
+        ]
+    if deg > 3:
+        cols += [
+            C4[0] * xy * (xx - yy),
+            C4[1] * yz * (3 * xx - yy),
+            C4[2] * xy * (7 * zz - 1),
+            C4[3] * yz * (7 * zz - 3),
+            C4[4] * (zz * (35 * zz - 30) + 3),
+            C4[5] * xz * (7 * zz - 3),
+            C4[6] * (xx - yy) * (7 * zz - 1),
+            C4[7] * xz * (xx - 3 * yy),
+            C4[8] * (xx * (xx - 3 * yy) - yy * (3 * xx - yy)),
         ]
     return torch.stack(cols, dim=-1)
 

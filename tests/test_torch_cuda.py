@@ -19,11 +19,19 @@ last bucket column has missing member tiles): kernels A and E with the rect
 gate against their plain versions at the bounds above, kernel A's bucket
 composite equal to its bucket-1 composite, kernel D against its plain
 version per record field (kernel C's bound) and bit for bit against
-itself. Kernel A's 8x4 patches and patch mask against kernel E's primal,
-which walks 16x2 strips pair by pair (bit for bit): segments of 1,200
-records in one tile (several chunks, blocks that stop at a chunk boundary),
-partial tiles, buckets of 4 at ntx = 5, 9 and 13, and the adversarial
-records of tests/patch_cases.py."""
+itself. Kernel A's and the masked kernel E's 8x4 patches and patch mask
+against the guard E<MASK=false>, which walks every record through
+pair_alpha (bit for bit, primal rows 0-6; the masked E's tangent within
+1e-6 of max |guard| per row): segments of 1,200 records in one tile
+(several chunks, blocks that stop at a chunk boundary), partial tiles,
+buckets of 4 at ntx = 5, 9 and 13, and the adversarial records of
+tests/patch_cases.py. Kernel C on 8x4 patches with the mask, per-warp
+starts and its reduce-scatter sum: against its plain version per field
+and bit for bit against itself, with and without depth_grad, on the small
+scene and on the 1,200-record segments (19 chunks of 64, pixels that exit
+in the first); and bit for bit against its guard C<MASK=false> (every
+patch bit set) on those and on the adversarial records, which holds the
+patch bits kernel C computes to the pairs that contribute."""
 
 import numpy as np
 import pytest
@@ -39,8 +47,10 @@ from gslm_tpu_torch.ops.rasterize_cuda import (composite_tiles,
                                                composite_tiles_bucket_bwd_plain,
                                                composite_tiles_bwd,
                                                composite_tiles_bwd_plain,
+                                               composite_tiles_bwd_unmasked,
                                                composite_tiles_jvp,
                                                composite_tiles_jvp_plain,
+                                               composite_tiles_jvp_unmasked,
                                                composite_tiles_plain,
                                                tile_records)
 from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig
@@ -119,10 +129,11 @@ def test_composite_bwd_kernel_matches_plain(cuda, depth_grad):
 
 
 @pytest.mark.cuda
-def test_composite_bwd_kernel_is_deterministic(cuda):
+@pytest.mark.parametrize("depth_grad", [True, False])
+def test_composite_bwd_kernel_is_deterministic(cuda, depth_grad):
     args = _bwd_inputs(cuda)
-    a = composite_tiles_bwd(*args[:3], 13, 8, *args[3:])
-    b = composite_tiles_bwd(*args[:3], 13, 8, *args[3:])
+    a = composite_tiles_bwd(*args[:3], 13, 8, *args[3:], depth_grad)
+    b = composite_tiles_bwd(*args[:3], 13, 8, *args[3:], depth_grad)
     assert torch.equal(a, b)
 
 
@@ -372,21 +383,44 @@ def _deep_segments(cuda):
     return torch.tensor(rec, device=cuda), starts, counts, ntx, nty
 
 
+def _held_to_guard(tiles, records, starts, counts, ntx, nty, rects=None):
+    """Kernel A's rows ``tiles`` and the masked kernel E's primal bit for
+    bit against the guard E<MASK=false>'s, E's tangent (a seeded one)
+    within 1e-6 of max |guard| per row, non-finite where the guard's is."""
+    tangents = torch.randn(records.shape, device=records.device,
+                           generator=torch.Generator(
+                               records.device).manual_seed(8))
+    before = composite_tiles_jvp_unmasked.launches
+    guard, guard_dot = composite_tiles_jvp_unmasked(
+        records, tangents, starts, counts, ntx, nty, rects)
+    primal, dot = composite_tiles_jvp(records, tangents, starts, counts, ntx,
+                                      nty, rects)
+    torch.cuda.synchronize()
+    assert composite_tiles_jvp_unmasked.launches == before + 1
+    assert _bits_equal(tiles, guard)
+    assert _bits_equal(primal, guard)
+    for row in range(5):
+        fin = torch.isfinite(guard_dot[:, row])
+        assert torch.equal(fin, torch.isfinite(dot[:, row])), row
+        want, got = guard_dot[:, row][fin], dot[:, row][fin]
+        assert float((got - want).abs().max()) <= \
+            1e-6 * float(want.abs().max()), row
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["deep", "partial"])
 def test_patch_kernel_equals_strip_walk(cuda, case):
-    """Kernel A against kernel E's primal bit for bit (rows 0-6) and
-    against its plain version at the knife-edge bound."""
+    """Kernel A and the masked kernel E against the guard E<MASK=false>
+    (``_held_to_guard``), A against its plain version at the knife-edge
+    bound."""
     if case == "deep":
         records, starts, counts, ntx, nty = _deep_segments(cuda)
     else:   # 120x200: 7.5 tile rows, 12.5 tile columns
         (records, starts, counts), ntx, nty = _small_scene(cuda), 13, 8
     tiles, walked = composite_tiles(records, starts, counts, ntx, nty)
-    primal, _ = composite_tiles_jvp(records, torch.zeros_like(records),
-                                    starts, counts, ntx, nty)
     want, _ = composite_tiles_plain(records, starts, counts, ntx, nty)
     torch.cuda.synchronize()
-    assert _bits_equal(tiles, primal)
+    _held_to_guard(tiles, records, starts, counts, ntx, nty)
     assert _knife_edge(tiles[:, :5], want[:, :5])
     assert float((tiles[:, 6] != want[:, 6]).float().mean()) <= 0.01
     w, c = walked.cpu().numpy(), counts.cpu().numpy()
@@ -399,8 +433,9 @@ def test_patch_kernel_equals_strip_walk(cuda, case):
 @pytest.mark.parametrize("width", [80, 144, 208])
 def test_patch_kernel_bucket4_equals_strip_walk(cuda, width):
     """Bucket 4 at ntx = 5, 9 and 13 (bucket columns with missing member
-    tiles): kernel A<RECT> against E<RECT>'s primal bit for bit, against
-    its plain version, and against kernel A at bucket 1 (rows 0-5)."""
+    tiles): kernel A<RECT> and the masked E<RECT> against the guard
+    E<RECT, MASK=false> (``_held_to_guard``), A against its plain version
+    and against kernel A at bucket 1 (rows 0-5)."""
     params = random_gaussians(np.random.default_rng(0), n=4096, spread=1.5,
                               device=cuda)
     cam = ring_camera_batch(1, 128, width, device=cuda).view(0)
@@ -412,24 +447,20 @@ def test_patch_kernel_bucket4_equals_strip_walk(cuda, width):
     rects = tr.buckets.rects
     tiles, _ = composite_tiles(tr.records, tr.starts, tr.counts, ntx, 8,
                                rects)
-    primal, _ = composite_tiles_jvp(tr.records, torch.zeros_like(tr.records),
-                                    tr.starts, tr.counts, ntx, 8, rects)
     want, _ = composite_tiles_plain(tr.records, tr.starts, tr.counts, ntx, 8,
                                     rects)
     one, _ = composite_tiles(base.records, base.starts, base.counts, ntx, 8)
     torch.cuda.synchronize()
-    assert _bits_equal(tiles, primal)
+    _held_to_guard(tiles, tr.records, tr.starts, tr.counts, ntx, 8, rects)
     assert _knife_edge(tiles[:, :5], want[:, :5])
     assert torch.equal(tiles[:, :6], one[:, :6])
 
 
-@pytest.mark.cuda
-def test_patch_kernel_on_adversarial_records(cuda):
+def _adversarial_segments(cuda):
     """The adversarial records of the CPU property test (threshold
     opacities, ellipse edges on patch borders, strong anisotropy, conics
     that are not positive definite, NaN and inf fields), in segments of 48
-    around each of 4x4 tiles: kernel A equals kernel E's primal bit for
-    bit."""
+    around each of 4x4 tiles."""
     rng = np.random.default_rng(1)
     rec = adversarial_records(rng, 128)
     rng.shuffle(rec)
@@ -441,10 +472,73 @@ def test_patch_kernel_on_adversarial_records(cuda):
     records = torch.tensor(rec, device=cuda)
     starts = torch.arange(ntx * nty, dtype=torch.int32, device=cuda) * seg
     counts = torch.full((ntx * nty,), seg, dtype=torch.int32, device=cuda)
+    return records, starts, counts, ntx, nty
+
+
+@pytest.mark.cuda
+def test_patch_kernel_on_adversarial_records(cuda):
+    """``_adversarial_segments``: kernel A and the masked kernel E held to
+    the guard E<MASK=false> (``_held_to_guard``)."""
+    records, starts, counts, ntx, nty = _adversarial_segments(cuda)
     tiles, walked = composite_tiles(records, starts, counts, ntx, nty)
-    primal, _ = composite_tiles_jvp(records, torch.zeros_like(records),
-                                    starts, counts, ntx, nty)
     torch.cuda.synchronize()
-    assert _bits_equal(tiles, primal)
+    _held_to_guard(tiles, records, starts, counts, ntx, nty)
     assert bool((walked == counts).all())
-    assert int((tiles[:, 6] < seg).sum()) > 0     # some pixels exit
+    assert int((tiles[:, 6] < counts[:, None]).sum()) > 0  # some pixels exit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth_grad", [True, False])
+@pytest.mark.parametrize("case", ["small", "deep", "adversarial"])
+def test_composite_bwd_kernel_equals_guard(cuda, case, depth_grad):
+    """Kernel C bit for bit against its guard C<MASK=false> (every patch
+    bit set): skipping a pair whose bit kernel C clears must change no bit
+    of drec, so a bit cleared for a pair that contributes shows. On the
+    small scene, the 1,200-record segments and the adversarial records."""
+    if case == "small":
+        (records, starts, counts), ntx, nty = _small_scene(cuda), 13, 8
+    elif case == "deep":
+        records, starts, counts, ntx, nty = _deep_segments(cuda)
+    else:
+        records, starts, counts, ntx, nty = _adversarial_segments(cuda)
+    tiles, _ = composite_tiles(records, starts, counts, ntx, nty)
+    gtiles = torch.randn(counts.shape[0], 5, 256, device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(10))
+    args = (records, starts, counts, ntx, nty, gtiles, tiles[:, 5:],
+            depth_grad)
+    before = composite_tiles_bwd_unmasked.launches
+    guard = composite_tiles_bwd_unmasked(*args)
+    got = composite_tiles_bwd(*args)
+    torch.cuda.synchronize()
+    assert composite_tiles_bwd_unmasked.launches == before + 1
+    assert _bits_equal(got, guard)
+    if case != "adversarial":
+        assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth_grad", [True, False])
+def test_composite_bwd_kernel_on_deep_segments(cuda, depth_grad):
+    """Kernel C on 1,200-record segments (19 chunks of 64; tiles 0-2 exit
+    in the first chunk, so their warps start low): against its plain
+    version per field and bit for bit against itself; rows past every exit
+    exactly zero."""
+    records, starts, counts, ntx, nty = _deep_segments(cuda)
+    tiles, _ = composite_tiles(records, starts, counts, ntx, nty)
+    gtiles = torch.randn(counts.shape[0], 5, 256, device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(9))
+    args = (records, starts, counts, ntx, nty, gtiles)
+    got = composite_tiles_bwd(*args, tiles[:, 5:], depth_grad)
+    again = composite_tiles_bwd(*args, tiles[:, 5:], depth_grad)
+    want = composite_tiles_bwd_plain(*args, depth_grad)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert bool(torch.isfinite(got).all())
+    for f in range(10):
+        scale = float(want[:, f].abs().max()) + 1e-12
+        assert _knife_edge(got[:, f], want[:, f], scale), f
+    n_eff = tiles[:, 6].amax(dim=1).long()
+    for t in range(3):   # opaque tiles: every row past the exits is zero
+        assert int(n_eff[t]) < 256
+        assert float(got[t * 1200 + int(n_eff[t]):(t + 1) * 1200]
+                     .abs().max()) == 0.0

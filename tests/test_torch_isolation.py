@@ -19,7 +19,7 @@ names = [m.name for m in pkgutil.walk_packages(gslm_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-import compare_fwd
+import compare_kernels
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib", "gslm_tpu")
              or m.startswith(("jax.", "jaxlib.", "gslm_tpu.")))

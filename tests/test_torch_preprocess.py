@@ -98,3 +98,36 @@ def test_synthetic_fixtures_match_jax():
     jm, tm = j_make_camera(30, 50, angle=0.7), make_camera(30, 50, angle=0.7)
     np.testing.assert_array_equal(tm.full_proj, jm.full_proj)
     np.testing.assert_array_equal(tm.camera_center, jm.camera_center)
+
+
+def test_sh_degree_4_matches_jax():
+    """Degree 4 (25 coefficients, 24 ``features_rest`` rows): the basis,
+    ``eval_sh`` and a whole preprocess against JAX."""
+    rng = np.random.default_rng(4)
+    dirs = rng.normal(size=(64, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    coeffs = rng.normal(size=(64, 25, 3)).astype(np.float32)
+    assert t_sh.MAX_SH_DEGREE == j_sh.MAX_SH_DEGREE == 4
+    np.testing.assert_allclose(
+        t_sh.sh_basis(4, torch.tensor(dirs)).numpy(),
+        np.asarray(j_sh.sh_basis(4, jnp.asarray(dirs))), atol=1e-6)
+    np.testing.assert_allclose(
+        t_sh.eval_sh(4, torch.tensor(coeffs), torch.tensor(dirs)).numpy(),
+        np.asarray(j_sh.eval_sh(4, jnp.asarray(coeffs), jnp.asarray(dirs))),
+        atol=1e-5)
+    with pytest.raises(ValueError, match="SH degree 5"):
+        t_sh.sh_basis(5, torch.tensor(dirs))
+
+    jp, aux = j_random_gaussians(np.random.default_rng(5), n=96, sh_degree=4)
+    assert jp.features_rest.shape == (96, 24, 3)
+    meta = j_make_camera(height=48, width=64)
+    js = j_preprocess(jp, j_camera_from_meta(meta), active_sh_degree=4,
+                      alive=aux.alive)
+    tp = _port_params(jp, alive=np.asarray(aux.alive))
+    ts = t_preprocess(tp, _port_camera(meta), active_sh_degree=4,
+                      alive=tp.alive)
+    assert int(np.asarray(js.visible).sum()) > 0
+    for f in FLOAT_FIELDS:
+        np.testing.assert_allclose(getattr(ts, f).detach().numpy(),
+                                   np.asarray(getattr(js, f)), atol=1e-6,
+                                   err_msg=f)

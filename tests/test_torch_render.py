@@ -120,3 +120,22 @@ def test_metrics_match_jax_evaluate_dir(tmp_path):
     s, p = pair_metrics(r, g)
     assert abs(float(s) - want_views["SSIM"]["00000.png"]) < 1e-5
     assert abs(float(p) - want_views["PSNR"]["00000.png"]) < 1e-4
+
+
+def test_evaluate_dir_takes_use_lpips_positionally(tmp_path, capsys):
+    """``evaluate_dir(dir, use_lpips)`` as the JAX package's is called;
+    LPIPS is null either way, with a note when it was asked for."""
+    from PIL import Image
+    rng = np.random.default_rng(6)
+    for sub in ("renders", "gt"):
+        os.makedirs(tmp_path / sub)
+        Image.fromarray(rng.integers(0, 256, (24, 32, 3), dtype=np.uint8)
+                        ).save(tmp_path / sub / "00000.png")
+    want, _ = j_evaluate_dir(str(tmp_path), False)
+    got, views = evaluate_dir(str(tmp_path), False, device="cpu")
+    assert got["LPIPS"] is None and views["LPIPS"] == {}
+    assert abs(got["PSNR"] - want["PSNR"]) < 1e-4
+    assert "LPIPS" not in capsys.readouterr().out
+    again, _ = evaluate_dir(str(tmp_path), True, device="cpu")
+    assert again == got
+    assert "LPIPS" in capsys.readouterr().out
