@@ -7,12 +7,12 @@ failed phase exits non-zero:
 
 1. card and build: the card's name and power limit; nvcc builds every
    kernel of ``gslm_tpu_torch/csrc`` (one process per source, in
-   parallel); kernels A's, C's and E's registers, static shared memory
-   and resident blocks per SM.
+   parallel); kernels A's, C's, D's and E's registers, static shared
+   memory and resident blocks per SM.
 2. each kernel against its plain PyTorch version on the card: kernel A
    (tile compositor) on one 1920x1080 view of the headline scene, kernel B
-   (SSIM blur) on (15, 1080, 1920) planes. TF32 is off for matmul and
-   cuDNN.
+   (SSIM blur) on (15, 1080, 1920) planes, bit for bit. TF32 is off for
+   matmul and cuDNN.
 3. serving: ``batch_render`` of the 131,072-Gaussian SH-3 scene (spread
    1.5, log-scales in [-5.5, -3.5], seed 0) in a 4-view 1920x1080 batch,
    then ``pair_metrics`` of every view against its ground truth, under
@@ -39,9 +39,10 @@ failed phase exits non-zero:
    records and cotangents (knife-edge bound per field), bit for bit
    against itself and against the guard C<MASK=false>'s (every patch bit
    set: it holds the patch bits C computes to the records that contribute;
-   ``c_vs_plain``); the blur VJP against the plain reversed-tap blur; every
-   group's gradient through the kernels against the gradient through the
-   plain compositor (the plain versions patched in here); finite
+   ``c_vs_plain``); the blur VJP equal bit for bit to the plain
+   reversed-tap blur; every group's gradient through the kernels against
+   the gradient through the plain compositor (the plain versions patched
+   in here); finite
    gradients, parameters and statistics; ``denom`` rising by exactly the
    visible count; the loss falling over 10 steps.
 6. training timings: the step, its stages, the device-busy share, kernel
@@ -80,12 +81,15 @@ failed phase exits non-zero:
    to it bit for bit and both to the guard E<RECT, MASK=false>'s; ``train_step`` launches A once, B twice, C
    never and kernel D (bucket backward) once, its results finite,
    ``denom`` rising by the visible count, the loss falling over 10 steps;
-   kernel D against its plain version per field and bit for bit against
-   itself; every group's gradient within 1e-5·max of bucket 1's; J·v
+   kernel D against its plain version per field, bit for bit against
+   itself and against its guard D<MASK=false> (every patch bit set inside
+   the rect gate); every group's gradient within 1e-5·max of bucket 1's;
+   J·v
    through kernel E within 1e-6·max of bucket 1's; the adjoint at bucket 4
    (E forward, D backward) to 1e-4. Then timings at bucket 4 and 1
    (render, front end, gather, kernel, backward, ``train_step`` in turns),
-   the device-busy share, kernels A's and D's pairs and bounds, kernel C at
+   the device-busy share, kernels A's and D's pairs and bounds (D's lane
+   and culled lane bounds, its walk and sum timed apart), kernel C at
    bucket 1, the peak device memory, and every kernel's instruction totals
    from its SASS.
 9. a ``{"kernels": [...]}`` line, then the last line
@@ -149,7 +153,9 @@ A_MASK = (361, 2)
 # Kernel C's, counted the same way in the patch-mapped loop of
 # csrc/composite_bwd.cu (its 8x4 patches and patch mask, per-warp starts),
 # for pairs before the pixel's exit (pairs at or past it cost an integer
-# compare):
+# compare); kernel D's walk is the same code (composite_bwd_tile.cuh), and
+# its SASS gives the same counts for pairs inside the rect gate (a gated
+# record costs its rect test and the ballot, no fp32):
 C_EVAL = (9, 0)       # dx, dy, power, then the power > 0 gate
 C_EXP = (7, 1)        # past it: expf (MUFU.EX2), opacity, the 0.99 clip
 C_CONTRIB = {True: (56, 2), False: (54, 2)}   # contributing, with and
@@ -174,15 +180,6 @@ E_ACC = (41, 1)       # T_after >= 1e-4: weight and accumulators, pow_dot,
 #                       a_dot / (1 - a) (MUFU.RCP and its Newton step)
 A_PER_PAIR = (A_EVAL, A_EXP, A_CONTRIB, A_ACC)
 E_PER_PAIR = (E_EVAL, E_EXP, E_CONTRIB, E_ACC)
-# Kernel D's, counted the same way in csrc/composite_bucket_bwd.cu (kernel
-# C's walk, composite_bwd_walk.cuh), for pairs inside the rect gate before
-# the pixel's exit; a gated record costs a shared-memory flag, no fp32:
-D_EVAL = (9, 0)       # dx, dy, power, then the power > 0 gate
-D_EXP = (7, 1)        # past it: expf (MUFU.EX2), opacity, the 0.99 clip
-D_CONTRIB = (55, 2)   # contributing: the earlier kernel C's 56 less one
-#                       FMUL the compiler shared in this instantiation
-D_SUM = (10, 0)       # the least reduction, as C_SUM
-D_PER_PAIR = (D_EVAL, D_EXP, D_CONTRIB, D_SUM)
 # bench.py's million-Gaussian configuration (bench.py:338-378): seed 2,
 # 1,048,576 Gaussians, one 1080p view, bucket 4, capacities from its
 # bucket-record probe + 5 % (its TPU run counted 2,207,812 AABB and
@@ -241,10 +238,10 @@ def cuda_timed(fn):
     return out, start.elapsed_time(end)
 
 
-def device_busy(fn, cpu: bool = True) -> tuple[int, float, float]:
-    """One profiled call of ``fn``: (CUDA kernels launched, their summed
-    device time in ms, host wall time in ms, profiler overhead included).
-    ``cpu=False`` traces the device only (fewer events for a long call)."""
+def cuda_kernels(fn, cpu: bool = True) -> tuple[list, float]:
+    """One profiled call of ``fn``: (its CUDA kernel events in start order,
+    host wall time in ms, profiler overhead included). ``cpu=False``
+    traces the device only (fewer events for a long call)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -256,8 +253,19 @@ def device_busy(fn, cpu: bool = True) -> tuple[int, float, float]:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    return len(kernels), busy, wall
+    return sorted(kernels, key=lambda e: e.time_range.start), wall
+
+
+def kernels_ms(kernels: list) -> float:
+    """Summed device time in ms of the CUDA kernel events ``kernels``."""
+    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+
+
+def device_busy(fn, cpu: bool = True) -> tuple[int, float, float]:
+    """One profiled call of ``fn`` (``cuda_kernels``): (CUDA kernels
+    launched, their summed device time in ms, host wall time in ms)."""
+    kernels, wall = cuda_kernels(fn, cpu)
+    return len(kernels), kernels_ms(kernels), wall
 
 
 def host_top_ops(fn, n: int = 6) -> list:
@@ -411,47 +419,6 @@ def fwd_work(records, starts, counts, ntx: int, view_rows: int,
     return out
 
 
-def bwd_pair_work(records, starts, counts, ntx: int, view_rows: int, state,
-                  rects=None, max_elems: int = 1 << 25
-                  ) -> tuple[list[int], int]:
-    """A reverse walker's work over 16x2 strips (kernel D's; ``c_work``
-    counts kernel C's) on these inputs from the plain arithmetic and kernel
-    A's exit state: ([pairs walked (records below the tile's largest exit
-    position, times 256), evaluated (before the pixel's own exit), past the
-    power gate, contributing (past the 1/255 gate)], records walked). With
-    ``rects`` (kernel D: ``starts`` are each tile's bucket segment) the
-    evaluated pairs are those inside the rect gate and a fifth count, the
-    pairs before the pixel's exit that the gate skips, follows."""
-    import torch
-
-    from gslm_tpu_torch.ops.composite import ALPHA_MAX, ALPHA_MIN
-    from gslm_tpu_torch.ops.rasterize_cuda import PIX
-    dev = records.device
-    ntiles = counts.shape[0]
-    exit_pos = state[:, 1].long()                               # (T, 256)
-    n_eff = exit_pos.amax(dim=1)
-    S = max(int(n_eff.max()), 1)
-    G = max(1, max_elems // (S * PIX))
-    slot = torch.arange(S, device=dev)
-    n = torch.zeros(5, dtype=torch.long, device=dev)
-    for t0 in range(0, ntiles, G):
-        tiles = torch.arange(t0, min(t0 + G, ntiles), device=dev)
-        rec, power, gate, _ = _pair_geometry(records, starts, tiles, S, ntx,
-                                             view_rows, rects)
-        before = slot[None, :, None] < exit_pos[tiles, None, :]  # (G, S, 256)
-        ev = before & gate
-        past = ev & (power <= 0.0)
-        alpha = torch.clamp(
-            rec[..., 5, None] * torch.exp(torch.where(past, power, -100.0)),
-            max=ALPHA_MAX)
-        con = past & (alpha >= ALPHA_MIN)
-        n += torch.stack([(slot[None] < n_eff[tiles, None]).sum() * PIX,
-                          ev.sum(), past.sum(), con.sum(),
-                          (before & ~gate).sum()])
-    return ([int(v) for v in n.tolist()][:4 if rects is None else 5],
-            int(n_eff.sum()))
-
-
 def fwd_ops(work, per_pair) -> tuple[int, int]:
     """(fp32, MUFU) lane instructions of a forward walker (kernel A, E)
     over counts of ``fwd_work``, ``per_pair`` its (EVAL, EXP, CONTRIB, ACC)
@@ -461,9 +428,9 @@ def fwd_ops(work, per_pair) -> tuple[int, int]:
 
 
 def bwd_ops(work, per_pair) -> tuple[int, int]:
-    """(fp32, MUFU) lane instructions of a reverse walker (kernel C, D)
-    over counts of ``bwd_pair_work`` or ``c_work``, ``per_pair`` its (EVAL,
-    EXP, CONTRIB, SUM) counts."""
+    """(fp32, MUFU) lane instructions of the reverse walk (kernels C, D)
+    over counts of ``c_work``, ``per_pair`` its (EVAL, EXP, CONTRIB, SUM)
+    counts."""
     _, evaluated, past_power, contrib = work[:4]
     ev, ex, con, sm = per_pair
     return tuple(evaluated * ev[i] + past_power * ex[i]
@@ -522,28 +489,13 @@ def a_report(tag: str, label: str, records, starts, counts, ntx: int,
             "warp issue": est}
 
 
-def d_cost(records, starts, counts, ntx: int, view_rows: int, state,
-           buckets):
-    """Kernel D's work on these inputs (per-tile ``starts``/``counts``, each
-    tile's bucket segment) and its bound: (pairs, records walked, fp32,
-    MUFU, bytes, bound times, bound ms, bound by). Bytes: each record and
-    rect read once and drec written once, gtiles + exit state per tile, the
-    segment table."""
-    work, walked = bwd_pair_work(records, starts, counts, ntx, view_rows,
-                                 state, buckets.rects)
-    fp32, mufu = bwd_ops(work, D_PER_PAIR)
-    ntiles, n = counts.shape[0], records.shape[0]
-    nbytes = (n * (40 + 16 + 40) + ntiles * 7 * 256 * 4
-              + buckets.bcounts.shape[0] * 8)
-    return (work, walked, fp32, mufu, nbytes,
-            *bound_times(fp32, mufu, nbytes))
-
-
 def c_work(records, starts, counts, ntx: int, view_rows: int, state,
-           max_elems: int = 1 << 25) -> dict:
+           rects=None, max_elems: int = 1 << 25) -> dict:
     """Kernel C's work on these inputs from the plain arithmetic and kernel
     A's exit state ``state`` (ntiles, 2, 256), each as [walked, evaluated
-    (before the pixel's exit), past the power gate, contributing]:
+    (before the pixel's exit), past the power gate, contributing]; with
+    ``rects`` kernel D's (``starts``/``counts`` each tile's bucket
+    segment), whose evaluated pairs are those inside the rect gate:
 
     - "lane": (record, pixel) pairs, walked = the records below the tile's
       largest exit position times 256;
@@ -554,7 +506,10 @@ def c_work(records, starts, counts, ntx: int, view_rows: int, state,
       outcome any lane reaches, the earlier design's 16x2 strips over every
       record below the block's largest exit, and the kernel's 8x4 patches
       over the records below the warp's largest exit whose bit it has;
-    - "staged": records staged (the tiles' largest exit positions).
+    - "staged": records staged (the tiles' largest exit positions);
+    - with ``rects``, "staged in rect": those inside the rect gate (the
+      ones whose patch bits the kernel tests), and "rect-gated": the pairs
+      before their pixel's exit that the gate skips.
 
     Checks that no contributing pair has its patch bit clear."""
     import torch
@@ -575,22 +530,26 @@ def c_work(records, starts, counts, ntx: int, view_rows: int, state,
     shift = torch.arange(PIX // 32, device=dev, dtype=torch.int32)
     n = {k: torch.zeros(4, dtype=torch.long, device=dev)
          for k in ("lane", "lane culled", "warp strip", "warp patch mask")}
-    unsound = 0
+    unsound, gated, staged_in = 0, 0, 0
     for t0 in range(0, ntiles, G):
         tiles = torch.arange(t0, min(t0 + G, ntiles), device=dev)
-        rec, power, _, _ = _pair_geometry(records, starts, tiles, S, ntx,
-                                          view_rows)
+        rec, power, gate, idx = _pair_geometry(records, starts, tiles, S, ntx,
+                                               view_rows, rects)
         xp = exit_pos[tiles]                                     # (G, 256)
         walked = slot[None] < n_eff[tiles, None]                 # (G, S)
         before = slot[None, :, None] < xp[:, None, :]            # (G, S, 256)
+        gated += int((before & ~gate).sum())
+        staged_in += int((walked & gate[..., 0]).sum())
+        before &= gate
         past = before & (power <= 0.0)
         alpha = torch.clamp(
             rec[..., 5, None] * torch.exp(torch.where(past, power, -100.0)),
             max=ALPHA_MAX)
         con = past & (alpha >= ALPHA_MIN)
         del power, alpha
-        bits = ((patch_masks(rec, tiles, ntx, view_rows)[..., None] >> shift)
-                & 1).bool()                                      # (G, S, 8)
+        bits = ((patch_masks(rec, tiles, ntx, view_rows,
+                             None if rects is None else rects[idx])[..., None]
+                 >> shift) & 1).bool()                           # (G, S, 8)
         warp_eff = xp[:, perm].view(-1, 8, 32).amax(dim=-1)      # (G, 8)
         walk = bits & (slot[None, :, None] < warp_eff[:, None])  # (G, S, 8)
         on = walk[..., patch_of]                                 # (G, S, 256)
@@ -612,35 +571,49 @@ def c_work(records, starts, counts, ntx: int, view_rows: int, state,
           f"contributing pairs")
     out = {k: [int(x) for x in v.tolist()] for k, v in n.items()}
     out["staged"] = int(n_eff.sum())
+    if rects is not None:
+        out["staged in rect"], out["rect-gated"] = staged_in, gated
     return out
 
 
 def c_report(tag: str, label: str, records, starts, counts, ntx: int,
-             view_rows: int, state, depth_grad: bool, ms: float) -> dict:
-    """Kernel C's work on these inputs (``c_work``), its lane bound (every
-    pair before its pixel's exit) and culled lane bound (only those in
-    patches whose mask bit is set: the table takes the lower), and the
-    mask's overhead (``C_MASK`` per staged record, in no bound), printed.
-    Bytes: the records walked and drec written once, gtiles + exit state
-    per tile, the segment table."""
-    w = c_work(records, starts, counts, ntx, view_rows, state)
+             view_rows: int, state, depth_grad: bool, ms: float,
+             rects=None) -> dict:
+    """Kernel C's work on these inputs (``c_work``), or with ``rects``
+    kernel D's (``starts``/``counts`` each tile's bucket segment): the lane
+    bound (every pair before its pixel's exit, inside the rect gate) and
+    the culled lane bound (only those in patches whose mask bit is set: the
+    table takes the lower), and the mask's overhead (``C_MASK`` per staged
+    record, inside the rect gate for D; in no bound), printed. D's walk is
+    C's code: the same ``C_*`` counts per pair. Bytes: records (and rects)
+    read and drec written once, gtiles + exit state per tile, the segment
+    table; D's scratch, which the function does not need, in no bound."""
+    kernel = "C" if rects is None else "D"
+    w = c_work(records, starts, counts, ntx, view_rows, state, rects)
     per_pair = (C_EVAL, C_EXP, C_CONTRIB[depth_grad], C_SUM)
-    nbytes = (w["staged"] * 40 + records.shape[0] * 40
+    n = records.shape[0]
+    nbytes = (min(w["staged"], n) * 40 + n * 40
+              + (0 if rects is None else n * 16)
               + counts.shape[0] * (7 * 256 * 4 + 8))
-    mask_ops = (w["staged"] * C_MASK[0], w["staged"] * C_MASK[1])
+    masked = w.get("staged in rect", w["staged"])
+    mask_ops = (masked * C_MASK[0], masked * C_MASK[1])
     mask_t = bound_times(*mask_ops, 0)[1]
     lane_t, lane, lane_by = bound_times(*bwd_ops(w["lane"], per_pair),
                                         nbytes)
     culled_t, culled, culled_by = bound_times(
         *bwd_ops(w["lane culled"], per_pair), nbytes)
-    print(f"{tag} kernel C {label}: pairs [walked, evaluated, past power "
-          f"gate, contributing] {w['lane']}, in masked-in patches "
+    gate = ("" if rects is None else
+            f", rect-gated {w['rect-gated']}; {masked} of them inside the "
+            f"rect gate ({n} in segments)")
+    print(f"{tag} kernel {kernel} {label}: pairs [walked, evaluated, past "
+          f"power gate, contributing] {w['lane']}, in masked-in patches "
           f"{w['lane culled']}; (record, warp) steps by furthest outcome: "
           f"16x2 strips from the block's largest exit (earlier design) "
           f"{w['warp strip']}, 8x4 patches with the mask from the warp's "
-          f"own {w['warp patch mask']}; {w['staged']} records staged",
+          f"own {w['warp patch mask']}; {w['staged']} records staged{gate}",
           flush=True)
-    print(f"{tag} kernel C {label}: {ms:.3f} ms; lane bound {lane:.4f} ms ("
+    print(f"{tag} kernel {kernel} {label}: {ms:.3f} ms; lane bound "
+          f"{lane:.4f} ms ("
           + ", ".join(f"{k} {v:.4f}" for k, v in lane_t.items())
           + f"), culled lane bound {culled:.4f} ms ("
           + ", ".join(f"{k} {v:.4f}" for k, v in culled_t.items())
@@ -678,6 +651,35 @@ def e_report(tag: str, label: str, work: dict, n_walked: int, ntiles: int,
     bound, by = min((lane, lane_by), (culled, culled_by))
     return {"bound": bound, "by": by, "lane bound": lane,
             "culled bound": culled, "mask overhead": mask_t}
+
+
+def d_split(kernels: list, calls: int) -> dict:
+    """Kernel D's two CUDA kernels apart in the CUDA kernel events
+    ``kernels`` of a trace that ran D ``calls`` times: the median device ms
+    per call of ``bucket_walk_kernel``, of ``bucket_sum_kernel`` and of the
+    two together. Fails unless each ran ``calls`` times."""
+    ms = {k: [e.time_range.elapsed_us() / 1e3 for e in kernels
+              if name in e.name]
+          for k, name in (("walk", "bucket_walk_kernel"),
+                          ("sum", "bucket_sum_kernel"))}
+    counts = {k: len(t) for k, t in ms.items()}
+    check(all(n == calls for n in counts.values()),
+          f"a trace of {calls} launches of kernel D holds {counts} launches "
+          f"of its kernels among {len(kernels)} CUDA kernels")
+    out = {k: statistics.median(t) for k, t in ms.items()}
+    out["walk + sum"] = statistics.median(
+        w + x for w, x in zip(ms["walk"], ms["sum"]))
+    return out
+
+
+def d_kernels_ms(args, reps: int = 5) -> dict:
+    """``d_split`` of ``reps`` calls of ``composite_tiles_bucket_bwd(*args)``
+    profiled together (``cuda_kernels``), after one untimed call."""
+    from gslm_tpu_torch.ops import rasterize_cuda as rc
+    rc.composite_tiles_bucket_bwd(*args)
+    kernels, _ = cuda_kernels(lambda: [rc.composite_tiles_bucket_bwd(*args)
+                                       for _ in range(reps)])
+    return d_split(kernels, reps)
 
 
 def c_vs_plain(label: str, records, starts, counts, ntx: int,
@@ -786,6 +788,12 @@ def bwd_attrs(lib) -> dict:
                         ("depth_grad", "no depth_grad"))
 
 
+def bucket_bwd_attrs(lib) -> dict:
+    """``kernel_attrs`` of kernel D's walk (depth_grad) and sum."""
+    return kernel_attrs(lib, "composite_bucket_bwd_attrs",
+                        ("walk, depth_grad", "sum"))
+
+
 def jvp_attrs(lib) -> dict:
     """``kernel_attrs`` of kernel E's four instantiations."""
     return kernel_attrs(lib, "composite_jvp_attrs",
@@ -826,6 +834,7 @@ def run(dev, n_gauss: int, height: int, width: int) -> None:
           f"{len(_build.SIGNATURES)} kernels in parallel)", flush=True)
     attrs = {"A": fwd_attrs(_build.load("composite_fwd")),
              "C": bwd_attrs(_build.load("composite_bwd")),
+             "D": bucket_bwd_attrs(_build.load("composite_bucket_bwd")),
              "E": jvp_attrs(_build.load("composite_jvp"))}
     for k, v in attrs.items():
         print(f"kernel {k} registers, static shared bytes, resident "
@@ -899,9 +908,10 @@ def serve_phase(dev, n_gauss: int, height: int, width: int,
         want = blur_plain(planes, taps)
         torch.cuda.synchronize()
         err["B"] = float((got - want).abs().max())
-        print(f"kernel B vs plain {tuple(planes.shape)}: max|d| {err['B']:.3g}",
-              flush=True)
-        check(err["B"] <= 1e-6, "kernel B disagrees with blur_plain")
+        b_bits = torch.equal(got, want)
+        print(f"kernel B vs plain {tuple(planes.shape)}: max|d| {err['B']:.3g}"
+              f" ({'bitwise equal' if b_bits else 'not bitwise'})", flush=True)
+        check(b_bits, "kernel B differs from blur_plain")
 
         # ---- 3. serving path at full width -------------------------------
         composite_tiles.launches = 0
@@ -1143,10 +1153,14 @@ def train_phase(dev, n_gauss: int, height: int, width: int, tag: str,
                    requires_grad=True)
     g = torch.randn(1, 15, height, width, device=dev, generator=gen)
     (gx,) = torch.autograd.grad(blur(x, taps), x, g)
-    vjp_err = float((gx - blur_plain(g, taps[::-1])).abs().max())
+    want = blur_plain(g, taps[::-1])
+    vjp_err = float((gx - want).abs().max())
+    vjp_bits = torch.equal(gx, want)
     print(f"blur VJP vs plain reversed-tap blur {tuple(g.shape)}: max|d| "
-          f"{vjp_err:.3g}", flush=True)
-    check(vjp_err <= 1e-6, "the blur VJP disagrees with blur_plain")
+          f"{vjp_err:.3g} ({'bitwise equal' if vjp_bits else 'not bitwise'})",
+          flush=True)
+    check(vjp_bits, "the blur VJP differs from blur_plain")
+    del want
 
     # ---- gradients through the kernels against the plain compositor -----
     _, _, _, gk, mk = loss_and_grads(params, cam, bg, 0.0, **lg_kw)
@@ -1533,6 +1547,7 @@ def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
 # the bool template parameters of each kernel, in order, for SASS labels
 TEMPLATE_PARAMS = {"composite_fwd_kernel": ("RECT",),
                    "composite_bwd_kernel": ("DEPTH", "MASK"),
+                   "bucket_walk_kernel": ("DEPTH", "MASK"),
                    "composite_jvp_kernel": ("RECT", "MASK")}
 
 
@@ -1577,6 +1592,7 @@ def sass_totals(paths: dict | None = None,
                         blocks.append((f"after {ins.group(1)}", []))
             ops = collections.Counter(op for _, b in blocks for _, op, _ in b)
             m = re.search(r"(\w+?_kernel)((?:ILb[01]E|Lb[01]E)*)", fn)
+            taps = re.search(r"_kernelILi(\d+)EE", fn)
             kernel = m.group(1).split("_cu_")[-1] if m else fn
             kernel = re.sub(r"^[0-9a-f]+\d+", "", kernel)
             flags = re.findall(r"Lb([01])E", m.group(2)) if m else []
@@ -1587,6 +1603,8 @@ def sass_totals(paths: dict | None = None,
                 kernel += "<" + ", ".join(
                     f"{nm}={'true' if b == '1' else 'false'}"
                     for nm, b in zip(names, flags)) + ">"
+            elif taps:
+                kernel += f"<K={taps.group(1)}>"
             print(f"SASS {name}: {kernel} {sum(ops.values())} instructions; "
                   + ", ".join(f"{k} {ops[k]}" for k in ("FFMA", "FADD",
                                                         "FMUL", "MUFU")),
@@ -1782,9 +1800,13 @@ def bucket_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     rec, buckets, _, _, gtiles, xstate, depth_grad = args
     got = rc.composite_tiles_bucket_bwd(*args)
     again = rc.composite_tiles_bucket_bwd(*args)
+    guard = rc.composite_tiles_bucket_bwd_unmasked(*args)
     want, d_plain_ms = cuda_timed(lambda: rc.composite_tiles_bucket_bwd_plain(
         *args[:5], depth_grad))
     check(torch.equal(got, again), "kernel D is not bitwise repeatable")
+    check(torch.equal(got.view(torch.int32), guard.view(torch.int32)),
+          "kernel D differs from the guard D<MASK=false>'s")
+    del guard
     check(bool(torch.isfinite(got).all()), "kernel D gave non-finite values")
     d_err, d_rel = 0.0, []
     for f in range(rc.NF):
@@ -1796,8 +1818,8 @@ def bucket_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     print(f"kernel D vs plain ({rec.shape[0]} records, "
           f"{buckets.bcounts.shape[0]} buckets): max|d| {d_err:.3g}; "
           f"max|d|/max|plain| per field "
-          f"{[float(f'{r:.3g}') for r in d_rel]}; two runs bitwise equal",
-          flush=True)
+          f"{[float(f'{r:.3g}') for r in d_rel]}; two runs bitwise equal, "
+          f"and bitwise equal to the guard D<MASK=false>'s", flush=True)
     del got, again, want
 
     # ---- 6. every group's gradient, bucket 4 (A + D) vs bucket 1 (A + C)
@@ -1926,8 +1948,12 @@ def bucket_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     t1["train_step"] = statistics.median(step_runs[1])
     t4["kernel D"] = cuda_ms(lambda: rc.composite_tiles_bucket_bwd(*args), 5)
     t1["kernel C"] = cuda_ms(lambda: rc.composite_tiles_bwd(*c_args), 5)
-    busy = {bk: device_busy(step_at(cfg)) for bk, cfg in ((4, cfg4),
-                                                          (1, cfg1))}
+    # kernel D's walk and sum apart, read from the bucket-4 step's trace
+    step4, wall4 = cuda_kernels(step_at(cfg4))
+    busy = {4: (len(step4), kernels_ms(step4), wall4),
+            1: device_busy(step_at(cfg1))}
+    d_kern = d_split(step4, 1)
+    del step4
     top_ops = {bk: host_top_ops(step_at(cfg)) for bk, cfg in ((4, cfg4),
                                                               (1, cfg1))}
 
@@ -1936,9 +1962,9 @@ def bucket_phase(dev, n_gauss: int, height: int, width: int, tag: str,
                   ntx, nty, walked, t4["kernel A"], rects)
     a_work, a_bound = ra["work"]["lane"], ra["bound"]
     bid = rc.bucket_of_tile(ntx, nty, nty, buckets.bucket, dev)
-    d_work, d_records, d_fp32, d_mufu, d_bytes, d_times, d_bound, d_by = \
-        d_cost(rec, buckets.bstarts[bid], buckets.bcounts[bid], ntx, nty,
-               xstate, buckets)
+    rd = c_report(tag, "(m1 bucket 4)", rec, buckets.bstarts[bid],
+                  buckets.bcounts[bid], ntx, nty, xstate, depth_grad,
+                  t4["kernel D"], buckets.rects)
     rc1 = c_report(tag, "(m1 bucket 1)", *c_args[:5], c_args[6], c_args[7],
                    t1["kernel C"])
     for name, t in (("bucket 4", t4), ("bucket 1", t1)):
@@ -1958,12 +1984,10 @@ def bucket_phase(dev, n_gauss: int, height: int, width: int, tag: str,
           f"power gate, past 1/255 gate, accumulated, rect-gated] {a_work}; "
           f"{t4['kernel A']:.3f} ms vs bound {a_bound:.4f} ms; plain "
           f"{a_plain_ms:.3f} ms", flush=True)
-    print(f"{tag} m1 kernel D pairs [walked, evaluated, past power gate, "
-          f"contributing, rect-gated] {d_work}, {d_records} records walked "
-          f"over the member tiles ({rec.shape[0]} in segments): {d_fp32} fp32"
-          f" + {d_mufu} MUFU lane instructions, {d_bytes} B; bound ms "
-          + ", ".join(f"{k} {x:.4f}" for k, x in d_times.items())
-          + f"; kernel D {t4['kernel D']:.3f} ms, plain {d_plain_ms:.3f} ms",
+    print(f"{tag} m1 kernel D {t4['kernel D']:.3f} ms (CUDA events, median "
+          f"of 5); its kernels in the profiled bucket-4 train_step (ms): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in d_kern.items())
+          + f"; bound {rd['bound']:.4f} ms; plain {d_plain_ms:.3f} ms",
           flush=True)
     print(f"m1 peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
           f" GiB", flush=True)
@@ -1987,8 +2011,12 @@ def bucket_phase(dev, n_gauss: int, height: int, width: int, tag: str,
                                  "lm_outer_step": 0,
                                  "train_m1_bucket4": step_launches["D"]},
             "max_abs_err": d_err, "ms": t4["kernel D"],
-            "plain_ms": d_plain_ms, "bound_ms": d_bound, "bound_by": d_by,
-            "library_ms": None}
+            "walk_ms": d_kern["walk"], "sum_ms": d_kern["sum"],
+            "plain_ms": d_plain_ms, "bound_ms": rd["bound"],
+            "bound_by": rd["by"], "library_ms": None,
+            "lane_bound_ms": rd["lane bound"],
+            "culled_bound_ms": rd["culled bound"],
+            "mask_overhead_ms": rd["mask overhead"]}
 
 
 if __name__ == "__main__":

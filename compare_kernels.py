@@ -1,15 +1,18 @@
-"""Kernels A, C, D and E against other builds of them on one card: held
-to the package's kernel, timed in turns, registers and SASS.
+"""Kernels A, B, C, D and E against other builds of them on one card:
+held to the package's kernel, timed in turns, registers and SASS.
 
     python3 compare_kernels.py KERNEL NAME=FILE.cu [NAME=FILE.cu ...]
                                [--sass-dir DIR]
 
-KERNEL is A (``csrc/composite_fwd.cu``, the forward compositor), C
-(``csrc/composite_bwd.cu``, its backward), D
-(``csrc/composite_bucket_bwd.cu``, the bucket backward) or E
-(``csrc/composite_jvp.cu``, the forward + tangent compositor). Each FILE
-is a source of that kernel with the same C entry point: an earlier design
-or a variant of this one. The headers beside FILE come before the
+KERNEL is A (``csrc/composite_fwd.cu``, the forward compositor), B
+(``csrc/blur.cu``, the SSIM blur), C (``csrc/composite_bwd.cu``, the
+compositor's backward), D (``csrc/composite_bucket_bwd.cu``, the bucket
+backward) or E (``csrc/composite_jvp.cu``, the forward + tangent
+compositor). Each FILE is a source of that kernel with the same C entry
+point: an earlier design or a variant of this one. Kernel D's entry took
+no scratch before its walk-and-sum design, whose library also exports
+``composite_bucket_bwd_unmasked``: a build without that symbol is called
+with the earlier arguments. The headers beside FILE come before the
 package's, so an earlier design builds with its own (``git archive
 <commit> gslm_tpu_torch/csrc | tar -x -C build/compare/old``, then
 ``old=build/compare/old/gslm_tpu_torch/csrc/composite_bwd.cu``;
@@ -30,7 +33,12 @@ is held to the package's kernel:
   and whether bit for bit is printed; the package's guard C<MASK=false> is
   timed beside them (``guard``);
 - D (m1 at bucket 4, depth_grad; a seeded image cotangent, kernel A's exit
-  state): the same as C;
+  state): the same as C, the package's guard D<MASK=false> timed beside
+  them (``guard``), and the package's walk and sum timed apart;
+- B (the 15 SSIM planes of the training view against its target, and of
+  one served view against its ground truth, (15, 1080, 1920)): every build
+  ``torch.equal`` to the package's and to ``blur_plain``, with the SSIM
+  taps and with them reversed (the VJP's);
 - E (the LM window, m1 at bucket 4 with rects; a seeded tangent scaled per
   field): primal rows 0-6 bit for bit, tangent rows within 1e-6 of the
   build's max |value| per row (bit for bit printed); the package's guard
@@ -65,19 +73,23 @@ import numpy as np  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 
 ROUNDS = 10   # timed rounds in turns per shape
-LIBS = {"A": "composite_fwd", "C": "composite_bwd",
+LIBS = {"A": "composite_fwd", "B": "blur", "C": "composite_bwd",
         "D": "composite_bucket_bwd", "E": "composite_jvp"}
+# kernel D's entry before its walk-and-sum design: no scratch arguments
+D_NO_SCRATCH = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+    ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2
 C_TOL = 2e-6   # C: max |build - package| per field, relative
 E_TOL = 1e-6   # E's tangent: the same per row
 
 
-# the saved-mask variant of kernel C: each record's mask from ``g_masks``
+# the saved-mask variant of kernel C: each record's mask from ``g_masks``,
+# a patch of kernel C's walk (composite_bwd_tile.cuh)
 PREMASKED_PATCH = (
     ('#include "composite_patch.cuh"\n',
      '#include "composite_patch.cuh"\n\n'
      '__constant__ const unsigned char* g_masks;   // (L,) patch masks\n'),
-    ("keep = !MASK || patch_bit(geo, f2.x, f2.y, txc, tyc, p);",
-     "keep = !MASK || ((g_masks[start + lo + j] >> p) & 1u);"))
+    ("&& (!MASK || patch_bit(geo, f2.x, f2.y, txc, tyc, p));",
+     "&& (!MASK || ((g_masks[start + lo + j] >> p) & 1u));"))
 PREMASKED_SETTER = """
 extern "C" int composite_bwd_set_masks(const unsigned char* masks) {
   return (int)cudaMemcpyToSymbol(g_masks, &masks, sizeof(masks));
@@ -85,19 +97,25 @@ extern "C" int composite_bwd_set_masks(const unsigned char* masks) {
 """
 
 
-def premasked_source(path: str) -> str:
-    """Kernel C's source with the patch masks read from memory, written
-    to ``path``; returns ``path``."""
+def premasked_source(out_dir) -> str:
+    """Kernel C's source with the patch masks read from memory: its walk's
+    header patched and the package's composite_bwd.cu with a setter,
+    written to ``out_dir``/premasked (the header beside the source comes
+    first in its build); returns the source's path."""
     from gslm_tpu_torch import _build
-    text = (_build.CSRC / "composite_bwd.cu").read_text()
+    text = (_build.CSRC / "composite_bwd_tile.cuh").read_text()
     for old, new in PREMASKED_PATCH:
         if text.count(old) != 1:
             raise RuntimeError(f"premasked: {old!r} not found once in "
-                               f"composite_bwd.cu")
+                               f"composite_bwd_tile.cuh")
         text = text.replace(old, new)
-    with open(path, "w") as f:
-        f.write(text + PREMASKED_SETTER)
-    return path
+    d = out_dir / "premasked"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "composite_bwd_tile.cuh").write_text(text)
+    src = d / "composite_bwd.cu"
+    src.write_text((_build.CSRC / "composite_bwd.cu").read_text()
+                   + PREMASKED_SETTER)
+    return str(src)
 
 
 def start_build(kernel: str, name: str, src: str):
@@ -132,6 +150,8 @@ def finish_build(kernel: str, name: str, proc, so) -> ctypes.CDLL:
     cdll = ctypes.CDLL(str(so))
     sigs = dict(_build.SIGNATURES[LIBS[kernel]],
                 composite_bwd_set_masks=[ctypes.c_void_p])
+    if kernel == "D" and not hasattr(cdll, "composite_bucket_bwd_unmasked"):
+        sigs["composite_bucket_bwd"] = D_NO_SCRATCH
     for fn, argtypes in sigs.items():
         if hasattr(cdll, fn):
             getattr(cdll, fn).argtypes = argtypes
@@ -196,23 +216,52 @@ def c_call(lib, fn: str = "composite_bwd"):
     return call
 
 
-def d_call(lib):
-    """``composite_tiles_bucket_bwd`` through the kernel D of ``lib``."""
+def d_call(lib, fn: str = "composite_bucket_bwd"):
+    """``composite_tiles_bucket_bwd`` through the kernel D entry ``fn`` of
+    ``lib``, with the scratch it takes (none before the walk-and-sum
+    design)."""
+    import torch
+
+    from gslm_tpu_torch import _build
+    from gslm_tpu_torch.ops.rasterize_cuda import BUCKET_SLOTS, NF
+    scratch = hasattr(lib, "composite_bucket_bwd_unmasked")
+
+    def call(records, buckets, ntx, view_rows, gtiles, state, depth_grad):
+        n, bk = records.shape[0], buckets.bucket
+        drec = torch.empty_like(records)
+        ntiles = gtiles.shape[0]
+        geometry = (buckets.bcounts.shape[0], *((n,) if scratch else ()),
+                    ntx, ntiles // ntx, view_rows, bk)
+        extra = ()
+        if scratch:
+            part = torch.empty(bk * bk, n, NF, device=records.device)
+            flags = torch.empty(n, BUCKET_SLOTS, dtype=torch.uint8,
+                                device=records.device)
+            extra = (part.data_ptr(), flags.data_ptr())
+        _build.check(getattr(lib, fn)(
+            records.data_ptr(), buckets.rects.data_ptr(),
+            buckets.bstarts.data_ptr(), buckets.bcounts.data_ptr(),
+            *geometry, gtiles.data_ptr(), state.data_ptr(), int(depth_grad),
+            *extra, drec.data_ptr(), torch.cuda.current_stream().cuda_stream),
+            fn)
+        return drec
+    return call
+
+
+def b_call(lib):
+    """``blur_same`` on (planes, H, W) through the kernel B of ``lib``."""
     import torch
 
     from gslm_tpu_torch import _build
 
-    def call(records, buckets, ntx, view_rows, gtiles, state, depth_grad):
-        drec = torch.empty_like(records)
-        ntiles = gtiles.shape[0]
-        _build.check(lib.composite_bucket_bwd(
-            records.data_ptr(), buckets.rects.data_ptr(),
-            buckets.bstarts.data_ptr(), buckets.bcounts.data_ptr(),
-            buckets.bcounts.shape[0], ntx, ntiles // ntx, view_rows,
-            buckets.bucket, gtiles.data_ptr(), state.data_ptr(),
-            int(depth_grad), drec.data_ptr(),
-            torch.cuda.current_stream().cuda_stream), "composite_bucket_bwd")
-        return drec
+    def call(x, taps):
+        y = torch.empty_like(x)
+        taps_c = (ctypes.c_float * len(taps))(*taps)
+        _build.check(lib.blur_same(x.data_ptr(), y.data_ptr(), x.shape[0],
+                                   x.shape[1], x.shape[2], taps_c, len(taps),
+                                   torch.cuda.current_stream().cuda_stream),
+                     "blur_same")
+        return y
     return call
 
 
@@ -271,8 +320,9 @@ def timed_in_turns(fns: dict) -> dict:
     return times
 
 
-def report(kernel: str, label: str, n: int, held: str, times: dict) -> None:
-    print(f"kernel {kernel} {label} ({n} records): {held}; in turns, median "
+def report(kernel: str, label: str, n: int, held: str, times: dict,
+           unit: str = "records") -> None:
+    print(f"kernel {kernel} {label} ({n} {unit}): {held}; in turns, median "
           f"of {ROUNDS} (ms): "
           + ", ".join(f"{k} {statistics.median(v):.4f}"
                       for k, v in times.items())
@@ -333,6 +383,69 @@ def compare_bwd(kernel: str, package, calls: dict, label, args) -> None:
                                for k, c in calls.items()}})
     report(kernel, f"{label} depth_grad={args[-1]}", args[0].shape[0],
            "; ".join(held), times)
+
+
+def compare_b(calls: dict, label: str, planes) -> None:
+    """Kernel B: every build ``torch.equal`` to the package's and to
+    ``blur_plain`` on ``planes`` with the SSIM taps and reversed, then all
+    timed in turns per taps."""
+    import torch
+
+    from gslm_tpu_torch.ops.blur_cuda import blur_plain, blur_same
+    from gslm_tpu_torch.ops.ssim import gaussian_taps
+    taps = tuple(float(t) for t in gaussian_taps())
+    for name_t, tp in (("taps", taps), ("reversed taps", taps[::-1])):
+        want = blur_same(planes, tp)
+        cs.check(torch.equal(want, blur_plain(planes, tp)),
+                 f"kernel B (package) differs from blur_plain on {label}")
+        for name, call in calls.items():
+            cs.check(torch.equal(call(planes, tp), want),
+                     f"kernel B ({name}) differs from the package's on "
+                     f"{label}, {name_t}")
+        del want
+        times = timed_in_turns({"package": lambda: blur_same(planes, tp),
+                                **{k: (lambda c=c: c(planes, tp))
+                                   for k, c in calls.items()}})
+        report("B", f"{label} {name_t} {tuple(planes.shape)}",
+               planes.numel(), f"{sorted(calls)} and blur_plain equal to the "
+               f"package's (torch.equal)", times, "values")
+
+
+def ssim_planes(dev):
+    """Yield (label, the 15 SSIM planes) of the training view (the 131k
+    scene with 50 exposure images against its target, the render with
+    ``features_dc`` shifted by a seeded offset, as chip_smoke.py phase 5)
+    and of view 0 of the 4-view serving batch against its ground truth."""
+    import torch
+
+    from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig
+    from gslm_tpu_torch.renderer import batch_render
+    from gslm_tpu_torch.utils.synthetic import (random_gaussians,
+                                                ring_camera_batch)
+
+    def planes(a, b):
+        return torch.cat([a, b, a * a, b * b, a * b], dim=0).contiguous()
+
+    bg = torch.zeros(3, device=dev)
+    with torch.no_grad():
+        p = random_gaussians(np.random.default_rng(0), n=cs.N_GAUSS,
+                             capacity=cs.N_GAUSS, sh_degree=3,
+                             num_images=cs.EXPOSURES, spread=1.5,
+                             scale_range=(-5.5, -3.5), device=dev)
+        cam = ring_camera_batch(1, cs.H, cs.W, device=dev)
+        cfg = RasterConfig(**cs.TRAIN_CAPS)
+        img = batch_render(p, cam, bg, config=cfg).render[0]
+        p.features_dc.add_(torch.tensor(np.random.default_rng(1).normal(
+            0, 0.2, (cs.N_GAUSS, 1, 3)).astype(np.float32), device=dev))
+        target = batch_render(p, cam, bg, config=cfg).render[0]
+        yield "(training view)", planes(img, target)
+        del p, img, target
+        p = random_gaussians(np.random.default_rng(0), n=cs.N_GAUSS,
+                             capacity=cs.N_GAUSS, sh_degree=3, spread=1.5,
+                             scale_range=(-5.5, -3.5), device=dev)
+        cams = ring_camera_batch(cs.VIEWS, cs.H, cs.W, device=dev)
+        out = batch_render(p, cams, bg, config=RasterConfig(**cs.CAPS))
+        yield "(served pair)", planes(out.render[0], cams.gt_image[0])
 
 
 def compare_e(calls: dict, label, records, tangents, starts, counts, ntx,
@@ -441,14 +554,13 @@ def main() -> int:
     if kernel == "C":
         out_dir = _build.BUILD_DIR / "compare"
         out_dir.mkdir(parents=True, exist_ok=True)
-        builds.append(("premasked", premasked_source(
-            str(out_dir / "premasked_src.cu"))))
+        builds.append(("premasked", premasked_source(out_dir)))
     started = [start_build(kernel, *b) for b in builds]
     _build.build_all()
     libs = {"package": _build.load(lib),
             **{name: finish_build(kernel, name, proc, so)
                for name, proc, so in started}}
-    attrs = {"A": cs.fwd_attrs, "C": cs.bwd_attrs,
+    attrs = {"A": cs.fwd_attrs, "C": cs.bwd_attrs, "D": cs.bucket_bwd_attrs,
              "E": cs.jvp_attrs}.get(kernel)
     for name, cdll in libs.items():
         if attrs and hasattr(cdll, f"{lib}_attrs"):
@@ -458,13 +570,19 @@ def main() -> int:
     cs.sass_totals({f"{lib}_{k}": cdll._name for k, cdll in libs.items()},
                    args.sass_dir)
     dev = torch.device("cuda")
+    others = {k: v for k, v in libs.items() if k != "package"}
+    if kernel == "B":
+        for label, planes in ssim_planes(dev):
+            compare_b({k: b_call(v) for k, v in others.items()}, label,
+                      planes)
+            del planes
+        return 0
     gen = torch.Generator(dev).manual_seed(1)
     shapes = {"A": ("(4-view stack)", "(training view)", "(LM window)",
                     "(m1 bucket 4)"),
               "C": ("(training view)", "(LM window)", "(m1 bucket 1)"),
               "D": ("(m1 bucket 4)",),
               "E": ("(LM window)", "(m1 bucket 4)")}[kernel]
-    others = {k: v for k, v in libs.items() if k != "package"}
     with torch.no_grad():
         for label, rec, st, cn, ntx, vrows, buckets in scenes(dev, shapes):
             rects = None if buckets is None else buckets.rects
@@ -478,10 +596,16 @@ def main() -> int:
                                  device=dev, generator=gen)
                 depth_grad = label != "(LM window)"
                 if kernel == "D":
-                    compare_bwd("D", rc.composite_tiles_bucket_bwd,
-                                {k: d_call(v) for k, v in others.items()},
-                                label, (rec, buckets, ntx, vrows, gt, state,
-                                        depth_grad))
+                    args = (rec, buckets, ntx, vrows, gt, state, depth_grad)
+                    calls = {k: d_call(v) for k, v in others.items()}
+                    calls["guard"] = d_call(libs["package"],
+                                            "composite_bucket_bwd_unmasked")
+                    compare_bwd("D", rc.composite_tiles_bucket_bwd, calls,
+                                label, args)
+                    print(f"kernel D {label}: the package's kernels per "
+                          f"call (profiler, ms, medians of 10 calls): "
+                          f"{cs.d_kernels_ms(args, 10)}", flush=True)
+                    del args
                 else:
                     masks = record_masks(rec, st, cn, ntx, vrows)
                     _build.check(libs["premasked"].composite_bwd_set_masks(

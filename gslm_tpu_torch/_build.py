@@ -39,8 +39,13 @@ SIGNATURES = {
                       "composite_bwd_unmasked": [_VP, _VP, _VP, _I, _I, _I,
                                                  _VP, _VP, _I, _VP, _VP],
                       "composite_bwd_attrs": [_VP]},
-    "composite_bucket_bwd": {"composite_bucket_bwd": [
-        _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP, _VP, _I, _VP, _VP]},
+    "composite_bucket_bwd": {
+        "composite_bucket_bwd": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                                 _VP, _VP, _I, _VP, _VP, _VP, _VP],
+        "composite_bucket_bwd_unmasked": [_VP, _VP, _VP, _VP, _I, _I, _I, _I,
+                                          _I, _I, _VP, _VP, _I, _VP, _VP, _VP,
+                                          _VP],
+        "composite_bucket_bwd_attrs": [_VP]},
     "composite_jvp": {"composite_jvp": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I,
                                         _VP, _VP, _VP],
                       "composite_jvp_unmasked": [_VP, _VP, _VP, _VP, _VP, _I,

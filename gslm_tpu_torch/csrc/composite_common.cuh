@@ -1,15 +1,15 @@
-// Shared by kernel A (composite_fwd.cu), kernel C (composite_bwd.cu),
-// kernel D (composite_bucket_bwd.cu) and kernel E (composite_jvp.cu): the
-// record layout, the compositing constants, the per-pair alpha arithmetic
-// and bucket mode's rect gate. Kernel D and the guard E<MASK=false> evaluate
-// a (record, pixel) pair through pair_alpha; kernels A, C and the masked E
-// call splat_power and write pair_alpha's alpha and two gates out as
-// branches (a call to it cost kernel A 32 more SASS instructions and 5-7 %
-// of its time on an H100). E<MASK=false>'s primal, held equal bit for bit
-// to kernel A's and to the masked E's (chip_smoke.py phases 7 and 8,
-// tests/test_torch_cuda.py), guards that copy, so the backward's and the
-// tangent's gates (rect, power <= 0, alpha >= 1/255) see the very bits the
-// forward saw.
+// Shared by kernel A (composite_fwd.cu), kernels C and D (composite_bwd.cu,
+// composite_bucket_bwd.cu, through composite_bwd_tile.cuh) and kernel E
+// (composite_jvp.cu): the record layout, the compositing constants, the
+// per-pair alpha arithmetic and bucket mode's rect gate. The guard
+// E<MASK=false> evaluates a (record, pixel) pair through pair_alpha;
+// kernels A, C, D and the masked E call splat_power and write pair_alpha's
+// alpha and two gates out as branches (a call to it cost kernel A 32 more
+// SASS instructions and 5-7 % of its time on an H100). E<MASK=false>'s
+// primal, held equal bit for bit to kernel A's and to the masked E's
+// (chip_smoke.py phases 7 and 8, tests/test_torch_cuda.py), guards that
+// copy, so the backward's and the tangent's gates (rect, power <= 0,
+// alpha >= 1/255) see the very bits the forward saw.
 #pragma once
 
 namespace gslm {
@@ -23,17 +23,6 @@ constexpr int OUT_ROWS = 7;       // + exit log-transmittance, exit position
 constexpr float ALPHA_MIN = 1.0f / 255.0f;
 constexpr float ALPHA_MAX = 0.99f;
 constexpr float T_EPS = 1e-4f;
-
-// Pixel coordinates of thread ``lane`` in tile ``t`` under 16x2 strips
-// (kernel D; the other kernels use composite_patch.cuh's 8x4 patches): no
-// +0.5; tile rows wrap modulo view_rows, so stacked views composite as
-// single views.
-__device__ __forceinline__ void tile_pixel(int t, int lane, int ntx,
-                                           int view_rows, float& px,
-                                           float& py) {
-  px = (float)((t % ntx) * TILE + lane % TILE);
-  py = (float)(((t / ntx) % view_rows) * TILE + lane / TILE);
-}
 
 // Pixel origin of tile ``t`` (tile rows wrap modulo view_rows, so y is
 // view-local), the point bucket mode's rect gate tests.

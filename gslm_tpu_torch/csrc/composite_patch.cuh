@@ -1,5 +1,5 @@
 // Kernel A's 8x4 warp patches and per-record patch mask, shared by kernel A
-// (composite_fwd.cu), kernel C (composite_bwd.cu) and kernel E
+// (composite_fwd.cu), kernels C and D (composite_bwd_tile.cuh) and kernel E
 // (composite_jvp.cu). Plain version of the mask:
 // ops/rasterize_cuda.py ``patch_masks``; of the mapping: ``PATCH_PIXELS``.
 //
@@ -7,8 +7,7 @@
 // [4 (w / 2), +4) of the tile, lane l its pixel (l % 8, l / 8): the most
 // compact 32-pixel footprint a tile offers, so a splat's edge leaves fewer
 // warps with lanes that contribute beside lanes that idle than 16x2 strips
-// do (kernel D keeps those: tile_pixel). Outputs stay at each pixel's
-// row-major index y * 16 + x.
+// do. Outputs stay at each pixel's row-major index y * 16 + x.
 //
 // Bit w of a record's mask is clear only where the record's alpha provably
 // stays below 1/255 on every pixel of patch w, so a pair whose bit is clear
@@ -128,7 +127,7 @@ __device__ __forceinline__ unsigned patch_mask(float4 geo, float c, float o,
 }
 
 // Bit w of the same mask, by itself (one thread per (record, patch);
-// kernel C): the same set-up and test, so the same bit.
+// kernels C and D): the same set-up and test, so the same bit.
 __device__ __forceinline__ bool patch_bit(float4 geo, float c, float o,
                                           int txc, int tyc, int w) {
   float2 inv;

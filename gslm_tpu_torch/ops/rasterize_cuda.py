@@ -21,8 +21,9 @@ own tile rect (the rect gate; ``BucketSegments.rects``, a separate int32
 tensor beside the 10 float fields): the tile walks exactly its bucket-1
 records plus ones the tile-level cull would drop, whose alpha is below
 1/255 on the whole tile, in the same depth order. The backward is kernel
-D, which sums the member tiles' cotangents of each record in one block
-(kernel C would overwrite them). The record gather ``table[order][rank]`` is
+D: kernel C's walk per tile into one scratch plane per member slot, then
+a sum of the member tiles' cotangents of each record in slot order (kernel
+C alone would overwrite them). The record gather ``table[order][rank]`` is
 differentiated by PyTorch's indexing backward, a scatter-add onto the
 Gaussians (JAX's ``_gather_records``); the JAX ``bwd_reduce="sortseg"``
 reduction is XLA code, not a kernel, and is not ported.
@@ -37,13 +38,14 @@ thus serves J·v and Jᵀ·u; records that are dual AND record autograd raise.
 ``composite_tiles`` / ``composite_tiles_bwd`` /
 ``composite_tiles_bucket_bwd`` / ``composite_tiles_jvp`` launch their
 kernels for CUDA tensors and take their plain versions (the same names with
-``_plain``) for CPU tensors only. Kernels A, C and E give each warp an 8x4
+``_plain``) for CPU tensors only. Kernels A, C, D and E give each warp an 8x4
 pixel patch of the tile (``PATCH_PIXELS``) and skip the records their
 per-record patch mask rules out; ``patch_masks`` is that mask's plain
 version. ``composite_tiles_jvp_unmasked`` is kernel E without the mask, the
 guard the tests and chip_smoke.py hold A and E to bit for bit, and
-``composite_tiles_bwd_unmasked`` kernel C without it, the guard they hold C
-to; no render path calls either.
+``composite_tiles_bwd_unmasked`` and ``composite_tiles_bucket_bwd_unmasked``
+kernels C and D without it, the guards they hold C and D to; no render path
+calls any of the three.
 """
 
 from __future__ import annotations
@@ -67,6 +69,7 @@ PIX = TILE * TILE   # pixels per tile
 NF = 10             # record fields: mean2d 2, conic 3, opacity, rgb 3, invdepth
 IMG_ROWS = 5        # r, g, b, invdepth, t_final
 OUT_ROWS = 7        # + the exit state: log-transmittance sum, exit position
+BUCKET_SLOTS = 16   # kernel D's flags per record row: bucket² member slots
 PATCH_W, PATCH_H = 8, 4   # kernel A's warp patches: 2 across, 4 down a tile
 # the row-major tile pixel of each of kernel A's 256 threads: warp w owns
 # the patch at (8 (w % 2), 4 (w // 2)), lane l its pixel (l % 8, l // 8)
@@ -497,38 +500,78 @@ def composite_tiles_bucket_bwd(records: torch.Tensor,
     256) and kernel A's exit state ``state`` (ntiles, 2, 256) are in tile
     order.
 
-    A CUDA tensor goes through kernel D (or the call raises); a CPU tensor
-    takes the plain version, which recomputes the forward and ignores
-    ``state``."""
+    A CUDA tensor goes through kernel D (one block per tile with kernel C's
+    walk, each member's sums to scratch, then a fixed-order sum per row; or
+    the call raises); a CPU tensor takes the plain version, which
+    recomputes the forward and ignores ``state``."""
     if records.device.type == "cpu":
         return composite_tiles_bucket_bwd_plain(records, buckets, ntx,
                                                 view_rows, gtiles,
                                                 depth_grad)
-    records, bstarts, bcounts = _check_records(records, buckets.bstarts,
-                                               buckets.bcounts)
-    ntiles = gtiles.shape[0]
-    if ntiles % ntx or (ntiles // ntx) % view_rows or \
-            view_rows % buckets.bucket:
-        raise ValueError(f"{ntiles} tiles of {ntx} columns do not stack "
-                         f"views of {view_rows} rows in buckets of "
-                         f"{buckets.bucket}")
-    gtiles, state = _check_tile_rows(records, ntiles,
-                                     gtiles=(gtiles[:, :IMG_ROWS], IMG_ROWS),
-                                     state=(state, 2))
-    drec = torch.empty_like(records)
-    lib = _build.load("composite_bucket_bwd")
-    rc = lib.composite_bucket_bwd(
-        records.data_ptr(), _rects_ptr(records, buckets.rects),
-        bstarts.data_ptr(), bcounts.data_ptr(), bcounts.shape[0], ntx,
-        ntiles // ntx, view_rows, buckets.bucket, gtiles.data_ptr(),
-        state.data_ptr(), int(depth_grad), drec.data_ptr(),
-        torch.cuda.current_stream(records.device).cuda_stream)
-    _build.check(rc, "composite_bucket_bwd")
+    drec = _bucket_bwd_launch("composite_bucket_bwd", records, buckets, ntx,
+                              view_rows, gtiles, state, depth_grad)
     composite_tiles_bucket_bwd.launches += 1
     return drec
 
 
 composite_tiles_bucket_bwd.launches = 0   # kernel D launches in this process
+
+
+def composite_tiles_bucket_bwd_unmasked(records: torch.Tensor,
+                                        buckets: BucketSegments, ntx: int,
+                                        view_rows: int, gtiles: torch.Tensor,
+                                        state: torch.Tensor,
+                                        depth_grad: bool = True
+                                        ) -> torch.Tensor:
+    """``composite_tiles_bucket_bwd`` through the guard D<MASK=false>: every
+    patch bit set inside the rect gate. Kernel D's drec is held equal to
+    its drec bit for bit (the tests, chip_smoke.py); no render path calls
+    it. A CPU tensor takes the plain version."""
+    if records.device.type == "cpu":
+        return composite_tiles_bucket_bwd_plain(records, buckets, ntx,
+                                                view_rows, gtiles,
+                                                depth_grad)
+    drec = _bucket_bwd_launch("composite_bucket_bwd_unmasked", records,
+                              buckets, ntx, view_rows, gtiles, state,
+                              depth_grad)
+    composite_tiles_bucket_bwd_unmasked.launches += 1
+    return drec
+
+
+composite_tiles_bucket_bwd_unmasked.launches = 0   # D<MASK=false> launches
+
+
+def _bucket_bwd_launch(fn: str, records, buckets: BucketSegments, ntx: int,
+                       view_rows: int, gtiles, state,
+                       depth_grad: bool) -> torch.Tensor:
+    """Kernel D's entry ``fn`` of the composite_bucket_bwd library on CUDA
+    tensors: drec (L, 10). The wrapper allocates the walk's scratch: each
+    member slot's sums (bucket², L, 10) and a flag per (row, slot)."""
+    records, bstarts, bcounts = _check_records(records, buckets.bstarts,
+                                               buckets.bcounts)
+    ntiles = gtiles.shape[0]
+    bk = buckets.bucket
+    if ntiles % ntx or (ntiles // ntx) % view_rows or view_rows % bk \
+            or bk * bk > BUCKET_SLOTS:
+        raise ValueError(f"{ntiles} tiles of {ntx} columns do not stack "
+                         f"views of {view_rows} rows in buckets of {bk}")
+    gtiles, state = _check_tile_rows(records, ntiles,
+                                     gtiles=(gtiles[:, :IMG_ROWS], IMG_ROWS),
+                                     state=(state, 2))
+    n = records.shape[0]
+    drec = torch.empty_like(records)
+    part = torch.empty(bk * bk, n, NF, device=records.device)
+    flags = torch.empty(n, BUCKET_SLOTS, dtype=torch.uint8,
+                        device=records.device)
+    lib = _build.load("composite_bucket_bwd")
+    rc = getattr(lib, fn)(
+        records.data_ptr(), _rects_ptr(records, buckets.rects),
+        bstarts.data_ptr(), bcounts.data_ptr(), bcounts.shape[0], n, ntx,
+        ntiles // ntx, view_rows, bk, gtiles.data_ptr(), state.data_ptr(),
+        int(depth_grad), part.data_ptr(), flags.data_ptr(), drec.data_ptr(),
+        torch.cuda.current_stream(records.device).cuda_stream)
+    _build.check(rc, fn)
+    return drec
 
 
 def _forward_ad_level():

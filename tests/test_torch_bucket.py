@@ -13,9 +13,9 @@ drops, whose alpha is below 1/255 on the whole tile, in the same depth
 order, and the closed form gates them exactly.
 
 Kernel D runs only on the card (tests/test_torch_cuda.py, chip_smoke.py).
-Here its algorithm, the member tiles of a bucket walked one after another
-in slot order, each in reverse from its own exit state under the rect gate,
-their terms added into the bucket's rows, is mirrored in numpy and held
+Here its numpy mirror (tests/test_torch_bucket_bwd_patch.py: kernel C's
+walk per member tile, in reverse from the tile's own exit state under the
+rect gate, then each record's sums over the members in slot order) is held
 against ``composite_tiles_bucket_bwd_plain`` (autograd of the rect-gated
 closed form) on saturated splats where pixels exit."""
 
@@ -49,6 +49,8 @@ from gslm_tpu_torch.renderer import (batch_render, overflow_probe, render,
                                      stack_views)
 from gslm_tpu_torch.utils.synthetic import ring_camera_batch
 from tests.test_torch_grad import _bounded, _stack_params, _to_port
+# pytest puts tests/ on sys.path (see tests/test_torch_bwd_patch.py)
+from test_torch_bucket_bwd_patch import _kernel_d
 
 BG = np.zeros(3, np.float32)
 CAP = 1 << 14
@@ -243,68 +245,14 @@ def test_bucket_batched_views_match_jax(scene):
     assert torch.equal(one.render, got.render[1])
 
 
-def _bucket_reverse_walk(rec, rects, bstarts, bcounts, ntx, nty, view_rows,
-                         bk, gtiles, state, depth_grad):
-    """Kernel D's algorithm (csrc/composite_bucket_bwd.cu) in float32
-    numpy, the 256 pixels of a tile as one vector: per bucket, its member
-    tiles in slot order, each walking the bucket's records in reverse from
-    its largest exit position under the rect gate (kernel C's walk), their
-    per-record sums added into the bucket's rows."""
-    rec = rec.astype(np.float32)
-    drec = np.zeros_like(rec)
-    lane = np.arange(256)
-    f32 = np.float32
-    nbx, vrow_b = -(-ntx // bk), view_rows // bk
-    for b in range(len(bcounts)):
-        start, count = int(bstarts[b]), int(bcounts[b])
-        view, by = divmod(b // nbx, vrow_b)
-        for s in range(bk * bk):
-            ty_v, tx = by * bk + s // bk, (b % nbx) * bk + s % bk
-            if tx >= ntx or view * view_rows + ty_v >= nty:
-                continue
-            t = (view * view_rows + ty_v) * ntx + tx
-            px = (tx * 16 + lane % 16).astype(f32)
-            py = (ty_v * 16 + lane // 16).astype(f32)
-            g = gtiles[t].astype(f32)
-            g_i = g[3] if depth_grad else np.zeros(256, f32)
-            lsum = state[t, 0].astype(f32)
-            exit_pos = np.clip(state[t, 1].astype(np.int64), 0, count)
-            s_acc = g[4] * np.exp(lsum)
-            for i in range(int(exit_pos.max()) - 1, -1, -1):
-                q = rects[start + i]
-                if not (q[0] <= tx * 16 < q[1] and q[2] <= ty_v * 16 < q[3]):
-                    continue
-                r = rec[start + i]
-                dx, dy = r[0] - px, r[1] - py
-                power = (f32(-0.5) * (r[2] * dx * dx + r[4] * dy * dy)
-                         - r[3] * dx * dy)
-                expp = np.exp(np.minimum(power, f32(0)))
-                a_raw = r[5] * expp
-                a = np.minimum(a_raw, f32(0.99))
-                act = (i < exit_pos) & (power <= 0) & (a >= f32(1 / 255))
-                l_before = np.minimum(lsum - np.log1p(-a), f32(0))
-                T = np.exp(l_before)
-                wgt = a * T
-                dw = r[6] * g[0] + r[7] * g[1] + r[8] * g[2] + r[9] * g_i
-                da = dw * T - s_acc / (f32(1) - a)
-                s_acc = np.where(act, s_acc + dw * wgt, s_acc)
-                lsum = np.where(act, l_before, lsum)
-                dpow = da * a_raw
-                terms = (dpow * -(r[2] * dx + r[3] * dy),
-                         dpow * -(r[4] * dy + r[3] * dx),
-                         dpow * (f32(-0.5) * dx * dx), dpow * (-dx * dy),
-                         dpow * (f32(-0.5) * dy * dy), da * expp,
-                         wgt * g[0], wgt * g[1], wgt * g[2], wgt * g_i)
-                drec[start + i] += [np.where(act, v, 0).sum() for v in terms]
-    return drec
-
-
 @pytest.mark.parametrize("bucket", [2, 4])
 def test_bucket_reverse_walk_matches_plain_backward(bucket):
-    """Kernel D's member-sequential walk against autograd of the rect-gated
-    closed form, on a stack of saturated splats (pixels exit at T < 1e-4)
-    seen by a 64x80 camera: ntx = 5, so buckets of the last column have
-    missing member tiles. Both bounded at atol 1e-5·max per field."""
+    """Kernel D's algorithm (``_kernel_d``: kernel C's walk per member
+    tile under the rect gate, then the slot-order sum over the members)
+    against autograd of the rect-gated closed form, on a stack of saturated
+    splats (pixels exit at T < 1e-4) seen by a 64x80 camera: ntx = 5, so
+    buckets of the last column have missing member tiles. Both bounded at
+    atol 1e-5·max per field."""
     h, w = 64, 80
     js = j_preprocess(_stack_params(), j_camera_from_meta(j_make_camera(
         height=h, width=w, radius=5.0)), active_sh_degree=3)
@@ -320,7 +268,7 @@ def test_bucket_reverse_walk_matches_plain_backward(bucket):
     for depth_grad in (True, False):
         want = composite_tiles_bucket_bwd_plain(tr.records, bk, ntx, nty, gt,
                                                 depth_grad).numpy()
-        got = _bucket_reverse_walk(
+        got = _kernel_d(
             tr.records.numpy(), bk.rects.numpy(), bk.bstarts.numpy(),
             bk.bcounts.numpy(), ntx, nty, nty, bucket, gt.numpy(),
             tiles[:, 5:].numpy(), depth_grad)

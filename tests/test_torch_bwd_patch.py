@@ -88,13 +88,16 @@ def segments(rec, starts, counts, ntx, view_rows, masked, rects=None):
     return seg, idx, bits
 
 
-def _kernel_c(rec, starts, counts, ntx, view_rows, gtiles, state,
-              depth_grad=True, masked=True, steps=None):
-    """Kernel C in float32 numpy → drec (L, 10), all tiles at once, record
-    slot by slot from the last. Thread k of a tile is pixel
-    PATCH_PIXELS[k]; ``masked=False``: no patch mask and every warp starts
-    at its block's largest exit position. ``steps`` (a list): gets the
-    number of (record, warp) steps walked."""
+def _tile_sums(rec, starts, counts, ntx, view_rows, gtiles, state,
+               depth_grad=True, masked=True, steps=None, rects=None):
+    """Kernel C's walk in float32 numpy (composite_bwd_tile.cuh), all tiles
+    at once, record slot by slot from the last → (sums (T, S, 10): each
+    tile's per-record sum over its pixels, wrote (T, S): whether a warp
+    wrote a partial of it, n_eff (T,): the tile's largest exit position).
+    Thread k of a tile is pixel PATCH_PIXELS[k]; ``masked=False``: no patch
+    mask and every warp starts at its block's largest exit position; with
+    ``rects`` a record outside the tile's rect gate has mask 0 (kernel D).
+    ``steps`` (a list): gets the number of (record, warp) steps walked."""
     f32 = np.float32
     T = len(counts)
     tiles = np.arange(T)[:, None]
@@ -110,8 +113,11 @@ def _kernel_c(rec, starts, counts, ntx, view_rows, gtiles, state,
     n_eff = warp_eff.max(axis=-1)
     if not masked:
         warp_eff[:] = n_eff[:, None]
-    seg, _, bits = segments(rec, starts, counts, ntx, view_rows, masked)
-    drec = np.zeros_like(rec, dtype=f32)
+    seg, _, bits = segments(rec, starts, counts, ntx, view_rows, masked,
+                            rects)
+    S = seg.shape[1]
+    sums = np.zeros((T, S, 10), f32)
+    wrote_any = np.zeros((T, S), bool)
     s_acc = g[4] * np.exp(lsum)
     n_steps = 0
     for i in range(int(n_eff.max()) - 1, -1, -1):
@@ -148,10 +154,23 @@ def _kernel_c(rec, starts, counts, ntx, view_rows, gtiles, state,
         acc = np.zeros((10, T), f32)
         for wp in range(8):
             acc = np.where(wrote[:, wp], acc + part[:, :, wp], acc)
-        live = i < n_eff
-        drec[starts[live] + i] = acc.T[live]
+        sums[:, i] = acc.T
+        wrote_any[:, i] = wrote.any(axis=1)
     if steps is not None:
         steps.append(n_steps)
+    return sums, wrote_any, n_eff
+
+
+def _kernel_c(rec, starts, counts, ntx, view_rows, gtiles, state,
+              depth_grad=True, masked=True, steps=None):
+    """Kernel C in float32 numpy → drec (L, 10): ``_tile_sums`` written to
+    each tile's rows below its largest exit, zeros past it."""
+    sums, _, n_eff = _tile_sums(rec, starts, counts, ntx, view_rows, gtiles,
+                                state, depth_grad, masked, steps)
+    drec = np.zeros_like(rec, dtype=np.float32)
+    for i in range(int(n_eff.max())):
+        live = i < n_eff
+        drec[starts[live] + i] = sums[live, i]
     return drec
 
 

@@ -9,7 +9,7 @@ Tolerances: kernel A at the random-scene bounds of the parity tests
 gate); kernel C at the same bounds per record field, relative to the
 field's max |plain| (its 1e-4 and 1/255 gates can flip against the plain
 closed form), and bit for bit against itself; kernel B, forward, VJP and
-JVP, to 1e-6 (same tap order, no FMA contraction). Kernel E on a dense
+JVP, bit for bit (same tap order, no FMA contraction). Kernel E on a dense
 scene where pixels exit: its primal against kernel A's (the same pair
 arithmetic: 1e-6, bit for bit expected), its tangent at the knife-edge
 bound per row relative to max |plain|, and bit for bit against itself;
@@ -31,7 +31,15 @@ and bit for bit against itself, with and without depth_grad, on the small
 scene and on the 1,200-record segments (19 chunks of 64, pixels that exit
 in the first); and bit for bit against its guard C<MASK=false> (every
 patch bit set) on those and on the adversarial records, which holds the
-patch bits kernel C computes to the pairs that contribute."""
+patch bits kernel C computes to the pairs that contribute. Kernel D (C's
+walk per member tile, a slot-order sum per record) likewise bit for bit
+against its guard D<MASK=false> and itself at buckets 2 and 4, with and
+without depth_grad, on the small scene's bucket records and on the
+1,200-record and adversarial segments regrouped into buckets with seeded
+rects; against its plain version on ragged views (ntx = 5, 9). Kernel B
+equal to ``blur_plain`` (``torch.equal``) for k in {1, 3, 5, 11, 15} on
+(15, 67, 133), (1, 5, 3) and (2, 1080, 1920): forward, the
+reversed-tap VJP and the JVP."""
 
 import numpy as np
 import pytest
@@ -42,17 +50,13 @@ from gslm_tpu_torch.config import LMParams, OptimizationParams
 from gslm_tpu_torch.models.gaussians import PARAM_GROUPS, GaussianAux
 from gslm_tpu_torch.ops.blur_cuda import blur, blur_plain, blur_same
 from gslm_tpu_torch.ops.projection import preprocess
-from gslm_tpu_torch.ops.rasterize_cuda import (composite_tiles,
-                                               composite_tiles_bucket_bwd,
-                                               composite_tiles_bucket_bwd_plain,
-                                               composite_tiles_bwd,
-                                               composite_tiles_bwd_plain,
-                                               composite_tiles_bwd_unmasked,
-                                               composite_tiles_jvp,
-                                               composite_tiles_jvp_plain,
-                                               composite_tiles_jvp_unmasked,
-                                               composite_tiles_plain,
-                                               tile_records)
+from gslm_tpu_torch.ops.rasterize_cuda import (
+    BucketSegments, bucket_of_tile, composite_tiles,
+    composite_tiles_bucket_bwd, composite_tiles_bucket_bwd_plain,
+    composite_tiles_bucket_bwd_unmasked, composite_tiles_bwd,
+    composite_tiles_bwd_plain, composite_tiles_bwd_unmasked,
+    composite_tiles_jvp, composite_tiles_jvp_plain,
+    composite_tiles_jvp_unmasked, composite_tiles_plain, tile_records)
 from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig
 from gslm_tpu_torch.ops.ssim import gaussian_taps
 from gslm_tpu_torch.optim import init_adam
@@ -146,7 +150,34 @@ def test_blur_kernel_matches_plain(cuda):
     want = blur_plain(x, gaussian_taps())
     torch.cuda.synchronize()
     assert blur_same.launches == before + 1
-    assert float((got - want).abs().max()) <= 1e-6
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(15, 67, 133), (1, 5, 3), (2, 1080, 1920)])
+@pytest.mark.parametrize("k", [1, 3, 5, 11, 15])
+def test_blur_kernel_equals_plain(cuda, k, shape):
+    """Kernel B equal to ``blur_plain`` bit for bit for every tap count the
+    SSIM path could use, on a ragged shape, a plane smaller than the halo
+    and a 1080p pair of planes: forward, the VJP (reversed asymmetric taps)
+    and the JVP (the same taps)."""
+    rng = np.random.default_rng(k)
+    taps = rng.uniform(0.05, 1.0, k).astype(np.float32)
+    gen = torch.Generator(cuda).manual_seed(k)
+    x = torch.rand(shape, device=cuda, generator=gen, requires_grad=True)
+    g = torch.randn(shape, device=cuda, generator=gen)
+    before = blur_same.launches, blur_same.vjp_launches, blur_same.jvp_launches
+    out = blur(x, taps)
+    (gx,) = torch.autograd.grad(out, x, g)
+    with fwAD.dual_level():
+        _, tangent = fwAD.unpack_dual(blur(fwAD.make_dual(x.detach(), g),
+                                           taps))
+    torch.cuda.synchronize()
+    assert (blur_same.launches - before[0], blur_same.vjp_launches
+            - before[1], blur_same.jvp_launches - before[2]) == (4, 1, 1)
+    assert torch.equal(out, blur_plain(x.detach(), taps))
+    assert torch.equal(gx, blur_plain(g, taps[::-1]))
+    assert torch.equal(tangent, blur_plain(g, taps))
 
 
 @pytest.mark.cuda
@@ -355,6 +386,36 @@ def test_bucket_bwd_kernel_matches_plain(cuda, bucket, depth_grad):
         assert float(got[:, 9].abs().max()) == 0.0
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [80, 144])
+def test_bucket_bwd_kernel_on_ragged_views(cuda, width):
+    """Kernel D at bucket 4 on views of ntx = 5 and 9 (the last bucket
+    column has missing member tiles): against its plain version per field,
+    bit for bit against itself and against its guard D<MASK=false>."""
+    params = random_gaussians(np.random.default_rng(0), n=4096, spread=1.5,
+                              device=cuda)
+    cam = ring_camera_batch(1, 128, width, device=cuda).view(0)
+    ntx = -(-width // 16)
+    with torch.no_grad():
+        splats = preprocess(params, cam, active_sh_degree=3)
+        tr = tile_records(splats, ntx, 8, RasterConfig(bucket=4))
+    tiles, _ = composite_tiles(tr.records, tr.starts, tr.counts, ntx, 8,
+                               tr.buckets.rects)
+    gtiles = torch.randn(ntx * 8, 5, 256, device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(1))
+    args = (tr.records, tr.buckets, ntx, 8, gtiles, tiles[:, 5:], True)
+    got = composite_tiles_bucket_bwd(*args)
+    again = composite_tiles_bucket_bwd(*args)
+    guard = composite_tiles_bucket_bwd_unmasked(*args)
+    want = composite_tiles_bucket_bwd_plain(*args[:5], True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _bits_equal(got, guard)
+    for f in range(10):
+        scale = float(want[:, f].abs().max()) + 1e-12
+        assert _knife_edge(got[:, f], want[:, f], scale), f
+
+
 def _bits_equal(a, b):
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
@@ -542,3 +603,82 @@ def test_composite_bwd_kernel_on_deep_segments(cuda, depth_grad):
         assert int(n_eff[t]) < 256
         assert float(got[t * 1200 + int(n_eff[t]):(t + 1) * 1200]
                      .abs().max()) == 0.0
+
+
+def _as_buckets(records, starts, counts, ntx, nty, bucket, seed):
+    """Per-tile segments regrouped as bucket segments on a grid padded to
+    whole buckets (the added tiles own no records): bucket b's segment is
+    its member tiles' records in slot order, each record given a seeded
+    rect of whole tiles inside the bucket (which may miss its own tile).
+    Returns (records, BucketSegments, ntx, nty) on the padded grid."""
+    dev = records.device
+    rng = np.random.default_rng(seed)
+    st, cn = starts.cpu().numpy(), counts.cpu().numpy()
+    nbx, nby = -(-ntx // bucket), -(-nty // bucket)
+    rows, rects, bst, bcn = [], [], [], []
+    for b in range(nbx * nby):
+        bx, by = b % nbx, b // nbx
+        bst.append(sum(len(r) for r in rows))
+        for s in range(bucket * bucket):
+            tx, ty = bx * bucket + s % bucket, by * bucket + s // bucket
+            if tx >= ntx or ty >= nty:
+                continue
+            idx = np.arange(st[ty * ntx + tx], st[ty * ntx + tx]
+                            + cn[ty * ntx + tx])
+            rows.append(idx)
+            lo = rng.integers(0, bucket, (len(idx), 2))
+            hi = lo + 1 + rng.integers(0, bucket, (len(idx), 2))
+            q = np.stack([bx * bucket + lo[:, 0], bx * bucket + hi[:, 0],
+                          by * bucket + lo[:, 1], by * bucket + hi[:, 1]], 1)
+            rects.append(16 * q)
+        bcn.append(sum(len(r) for r in rows) - bst[-1])
+    idx = torch.as_tensor(np.concatenate(rows), device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    buckets = BucketSegments(
+        rects=torch.as_tensor(np.concatenate(rects), **i32),
+        bstarts=torch.as_tensor(bst, **i32),
+        bcounts=torch.as_tensor(bcn, **i32), bucket=bucket)
+    return (records[idx].contiguous(), buckets, nbx * bucket,
+            nby * bucket)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth_grad", [True, False])
+@pytest.mark.parametrize("case", ["small", "deep", "adversarial"])
+@pytest.mark.parametrize("bucket", [2, 4])
+def test_bucket_bwd_kernel_equals_guard(cuda, bucket, case, depth_grad):
+    """Kernel D bit for bit against its guard D<MASK=false> (every patch
+    bit set inside the rect gate), under rects: the small scene's bucket
+    records, and the 1,200-record and adversarial segments regrouped into
+    buckets with seeded rects (``_as_buckets``); D bitwise repeatable."""
+    if case == "small":
+        tr = _bucket_inputs(cuda, bucket)[0]
+        records, buckets, ntx, nty = tr.records, tr.buckets, 13, 8
+    else:
+        segs = (_deep_segments(cuda) if case == "deep"
+                else _adversarial_segments(cuda))
+        records, buckets, ntx, nty = _as_buckets(*segs, bucket, seed=11)
+    bid = bucket_of_tile(ntx, nty, nty, bucket, cuda)
+    tiles, _ = composite_tiles(records, buckets.bstarts[bid],
+                               buckets.bcounts[bid], ntx, nty, buckets.rects)
+    gtiles = torch.randn(ntx * nty, 5, 256, device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(12))
+    args = (records, buckets, ntx, nty, gtiles, tiles[:, 5:], depth_grad)
+    before = (composite_tiles_bucket_bwd.launches,
+              composite_tiles_bucket_bwd_unmasked.launches)
+    guard = composite_tiles_bucket_bwd_unmasked(*args)
+    got = composite_tiles_bucket_bwd(*args)
+    again = composite_tiles_bucket_bwd(*args)
+    torch.cuda.synchronize()
+    assert (composite_tiles_bucket_bwd.launches,
+            composite_tiles_bucket_bwd_unmasked.launches) == (before[0] + 2,
+                                                              before[1] + 1)
+    assert _bits_equal(got, guard)
+    assert _bits_equal(got, again)
+    if case != "adversarial":
+        assert bool(torch.isfinite(got).all())
+        if case == "deep":
+            want = composite_tiles_bucket_bwd_plain(*args[:5], depth_grad)
+            for f in range(10):
+                scale = float(want[:, f].abs().max()) + 1e-12
+                assert _knife_edge(got[:, f], want[:, f], scale), f

@@ -2,13 +2,15 @@
 ops/ssim.py) against gslm_tpu.
 
 Kernel B's plain version against the JAX Pallas blur in interpret mode:
-atol 1e-6 (same taps, same tap order, f32 rounding only). SSIM map against
+atol 1e-6 (same taps, same tap order, f32 rounding only), for k in {1, 3,
+5, 11, 15} on four shapes up to (2, 1080, 1920). SSIM map against
 JAX's CPU SSIM (a dense conv at HIGH precision there): atol 1e-5; PSNR
 1e-4 dB. Gradients of the SSIM map (through ``blur``, whose VJP is the
 reversed-tap blur) against ``jax.grad`` of JAX's map: atol 1e-5. The
 blur's VJP on the CPU is the plain reversed-tap blur, bit for bit. The card
-test (tests/test_torch_cuda.py) holds kernel B against the plain version,
-forward and VJP."""
+tests (tests/test_torch_cuda.py) hold kernel B to the plain version bit for
+bit, forward, VJP and JVP, for k in {1, 3, 5, 11, 15} on the shapes the
+plain version is checked on here."""
 
 import numpy as np
 import pytest
@@ -33,9 +35,14 @@ def _images(seed, shape=(3, 40, 72)):
     return a, b
 
 
-def test_blur_plain_matches_pallas_blur():
-    x, _ = _images(0)
-    taps = gaussian_taps()
+@pytest.mark.parametrize("shape", [(3, 40, 72), (15, 67, 133), (1, 5, 3),
+                                   (2, 1080, 1920)])
+@pytest.mark.parametrize("k", [1, 3, 5, 11, 15])
+def test_blur_plain_matches_pallas_blur(k, shape):
+    """Every tap count kernel B is tested with on the card, on its shapes
+    (a plane smaller than the halo among them)."""
+    x, _ = _images(0, shape)
+    taps = gaussian_taps(k)
     want = np.asarray(j_blur_same(jnp.asarray(x), taps, interpret=True))
     got = blur_same(torch.tensor(x), taps)          # CPU → plain version
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
