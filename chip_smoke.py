@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths at full width and checks them, in phases; any
+Drives the port's paths at full width and checks them, in phases; any
 failed phase exits non-zero:
 
 1. card and build: the card's name and power limit; nvcc builds every
@@ -92,7 +92,40 @@ failed phase exits non-zero:
    and culled lane bounds, its walk and sum timed apart), kernel C at
    bucket 1, the peak device memory, and every kernel's instruction totals
    from its SASS.
-9. a ``{"kernels": [...]}`` line, then the last line
+9. scene I/O, initialisation, density control and checkpoints (cell
+   scene-densify-131k-1080p): the headline scene rendered through kernel
+   A from 8 ring views at 1920x1080 and written with the port's writers
+   as a COLMAP scene (PINHOLE cameras, 8-bit RGB PNGs, points3D.bin of
+   the 131,072 centres with their DC colours) in a temporary directory,
+   then loaded by ``Scene(resolution=1, shuffle=False, capacity=262,144)``
+   on the card. Checks: 8 cameras; every image bitwise equal to the uint8
+   written / 255; R, T and FoV to 1e-6; 131,072 alive slots; the 3-NN on
+   4,096 sampled rows within 1e-5 relative of a float64 numpy brute force,
+   the model's log-scales made from it, and ``create_from_pcd`` given it
+   equal to the Scene's model; points3D.bin and a Paeth-filtered 1080p
+   RGB and 800x800 RGBA PNG read back exactly (timed). Then 60 ``train_step``s
+   cycling the views (statistics on, capacities from ``overflow_probe`` +
+   5 %, again after each density event), each launching A once, B twice
+   and C once; ``densify_and_prune`` after steps 30 and 60 (the
+   ``OptimizationParams`` defaults, extent ``cameras_extent``, no
+   screen-size pruning, noise from a seeded ``torch.Generator``), each
+   event's counts and ``alive`` equal to the same call on CPU copies but
+   for rows within 1e-6 relative of a threshold (counted), parameters
+   within 1e-6 of max and moments bitwise where the allocations agree,
+   nothing dropped, Gaussians added; ``reset_opacity`` and 10 more steps,
+   finite and without overflow. On step 21 (before densification) and
+   step 66 (after the reset), on the step's own inputs after the launch
+   counts are read: A against ``composite_tiles_plain`` (knife-edge bound,
+   its exit state equal to the step's), B ``torch.equal`` to
+   ``blur_plain`` on the SSIM planes and their cotangents, C against its
+   plain backward per field (``c_vs_plain``). Then ``save_checkpoint`` /
+   ``load_checkpoint`` bitwise, a forward loss from the loaded state
+   bitwise equal to the live one, and ``Scene.save`` reloaded with
+   ``load_iteration=-1`` giving the live rows back bitwise. Prints the
+   write, load, PNG, 3-NN, ``create_from_pcd``, density-event and
+   checkpoint times, the median step before and after densification and
+   two profiled steps' device-busy shares.
+10. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of gslm_tpu. It finds the package beside itself
@@ -308,6 +341,61 @@ def backward_inputs():
         yield got
     finally:
         rc.Composite.backward = staticmethod(real)
+
+
+@contextlib.contextmanager
+def blur_inputs():
+    """Collects, for every ``Blur`` forward and backward run inside the
+    block, the arguments of the kernel-B launch it makes: (planes, taps),
+    the backward's taps reversed."""
+    from gslm_tpu_torch.ops import blur_cuda as bc
+    real_fwd, real_bwd = bc.Blur.forward, bc.Blur.backward
+    got = []
+
+    def forward(ctx, img, taps):
+        out = real_fwd(ctx, img, taps)
+        got.append((img, ctx.taps))
+        return out
+
+    def backward(ctx, grad):
+        got.append((grad.clone(), ctx.taps[::-1]))
+        return real_bwd(ctx, grad)
+
+    bc.Blur.forward = staticmethod(forward)
+    bc.Blur.backward = staticmethod(backward)
+    try:
+        yield got
+    finally:
+        bc.Blur.forward = staticmethod(real_fwd)
+        bc.Blur.backward = staticmethod(real_bwd)
+
+
+def _counted_wrappers() -> dict:
+    from gslm_tpu_torch.ops import rasterize_cuda as rc
+    from gslm_tpu_torch.ops.blur_cuda import blur_same
+    return {"A": rc.composite_tiles, "B": blur_same,
+            "C": rc.composite_tiles_bwd, "D": rc.composite_tiles_bucket_bwd,
+            "E": rc.composite_tiles_jvp}
+
+
+def launches() -> dict:
+    """Each kernel's launch count since the last ``zero_launches``."""
+    return {k: f.launches for k, f in _counted_wrappers().items()}
+
+
+def zero_launches() -> None:
+    for f in _counted_wrappers().values():
+        f.launches = 0
+
+
+def caps_from_counts(n_aabb: int, n_live: int, bucket: int = 1):
+    """Culled record capacities of ``overflow_probe``'s counts + 5 %."""
+    import math
+
+    from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig
+    return RasterConfig(dup_capacity=256 * math.ceil(1.05 * n_aabb / 256),
+                        live_capacity=256 * math.ceil(1.05 * n_live / 256),
+                        cull=True, bucket=bucket)
 
 
 def knife_edge_ok(got, want, scale: float = 1.0) -> tuple[bool, float]:
@@ -845,6 +933,7 @@ def run(dev, n_gauss: int, height: int, width: int) -> None:
     kernels.append(train_phase(dev, n_gauss, height, width, tag, kernels))
     kernels.append(lm_phase(dev, n_gauss, height, width, tag, kernels))
     kernels.insert(3, bucket_phase(dev, M1_N, height, width, tag, kernels))
+    scene_phase(dev, n_gauss, height, width, tag, kernels)
     for entry, k in zip(kernels, "ABCDE"):
         if k in attrs:
             entry["attrs"] = attrs[k]
@@ -1629,8 +1718,6 @@ def bucket_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     """Phase 8 (cell train-m1-bucket4-1080p). Adds the bucket path's
     launches to the entries of A, B, C and E in ``kernels`` and returns
     kernel D's entry."""
-    import math
-
     import torch
     import torch.autograd.forward_ad as fwAD
 
@@ -1638,7 +1725,6 @@ def bucket_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     from gslm_tpu_torch.models import gaussians as G
     from gslm_tpu_torch.models.gaussians import PARAM_GROUPS, GaussianAux
     from gslm_tpu_torch.ops import rasterize_cuda as rc
-    from gslm_tpu_torch.ops.blur_cuda import blur_same
     from gslm_tpu_torch.ops.rasterize_tiled import (RasterConfig, _cdiv,
                                                     bucket_splats,
                                                     duplicate_sort_ranges)
@@ -1663,22 +1749,8 @@ def bucket_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     ntx, nty = _cdiv(width, 16), _cdiv(height, 16)
     opt = OptimizationParams()
 
-    def launches():
-        return {"A": rc.composite_tiles.launches, "B": blur_same.launches,
-                "C": rc.composite_tiles_bwd.launches,
-                "D": rc.composite_tiles_bucket_bwd.launches,
-                "E": rc.composite_tiles_jvp.launches}
-
-    def zero_launches():
-        for f in (rc.composite_tiles, blur_same, rc.composite_tiles_bwd,
-                  rc.composite_tiles_bucket_bwd, rc.composite_tiles_jvp):
-            f.launches = 0
-
     def from_probe(pr, bucket):
-        return RasterConfig(
-            dup_capacity=256 * math.ceil(1.05 * int(pr["n_aabb"]) / 256),
-            live_capacity=256 * math.ceil(1.05 * int(pr["n_live"]) / 256),
-            cull=True, bucket=bucket)
+        return caps_from_counts(int(pr["n_aabb"]), int(pr["n_live"]), bucket)
 
     # ---- 1. the probe at bucket 4, and bucket 1's capacities ------------
     cfg4 = RasterConfig(**M1_CAPS)
@@ -2017,6 +2089,522 @@ def bucket_phase(dev, n_gauss: int, height: int, width: int, tag: str,
             "lane_bound_ms": rd["lane bound"],
             "culled_bound_ms": rd["culled bound"],
             "mask_overhead_ms": rd["mask overhead"]}
+
+
+# cell scene-densify-131k-1080p: the headline scene written to disk as a
+# COLMAP scene of 8 ring views, loaded back and trained with density control
+SCENE_VIEWS = 8
+SCENE_STEPS = 60               # steps before the opacity reset
+DENSIFY_AT = (30, 60)          # densify_and_prune after these steps
+SCENE_AFTER_RESET = 10         # steps after reset_opacity and a fresh probe
+KNN_SAMPLE = 4096              # rows of the 3-NN held to float64 numpy
+KNIFE_REL = 1e-6               # rows this close to a threshold may flip
+PROFILED_STEPS = (20, 65)      # one before densification, one after
+CHECKED_STEPS = (21, 66)       # A, B, C held to plain on these steps' inputs
+
+
+def knn_float64(points: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """Mean squared distance of ``points[rows]`` to their 3 nearest other
+    points, brute force in float64 numpy."""
+    p = points.astype(np.float64)
+    out = np.empty(len(rows))
+    for lo in range(0, len(rows), 256):
+        r = rows[lo:lo + 256]
+        d2 = np.zeros((len(r), len(p)))
+        for i in range(3):
+            d2 += (p[r, i][:, None] - p[None, :, i]) ** 2
+        out[lo:lo + 256] = np.sort(np.partition(d2, 3, axis=1)[:, :4],
+                                   axis=1)[:, 1:].mean(axis=1)
+    return out
+
+
+def knife_rows(params, aux, max_grad, min_opacity, extent, max_screen_size,
+               percent_dense):
+    """(C,) bool: live rows whose thresholded quantities in
+    ``densify_and_prune`` (without screen-size pruning) lie within
+    ``KNIFE_REL`` relative of their thresholds, computed in float64: there
+    the card's and the CPU's float32 exp and sigmoid may disagree."""
+    import torch
+    d = aux.denom.double()
+    grads = torch.where(d > 0, aux.xyz_gradient_accum.double()
+                        / torch.clamp(d, min=1.0), 0.0)
+    max_scale = torch.exp(params.scaling.detach().double()).amax(dim=1)
+    opacity = torch.sigmoid(params.opacity.detach().double()[:, 0])
+
+    def near(q, t):
+        return (q - t).abs() <= KNIFE_REL * abs(t)
+
+    check(max_screen_size == 0, "knife_rows: screen-size pruning is on")
+    return params.alive & (near(grads, max_grad)
+                           | near(max_scale, percent_dense * extent)
+                           | near(opacity, min_opacity))
+
+
+def write_paeth_png(path: str, img: np.ndarray) -> None:
+    """Write uint8 (H, W, C) as an 8-bit PNG with every row Paeth-filtered,
+    as photos saved by Pillow or Blender mostly are; the port's own writer
+    uses Up, whose rows decode one at a time."""
+    import struct
+    import zlib
+
+    from gslm_tpu_torch.data import png
+    h, w, c = img.shape
+    x = img.reshape(h, w * c).astype(np.int16)
+    b = np.vstack([np.zeros((1, w * c), np.int16), x[:-1]])
+    a = np.hstack([np.zeros((h, c), np.int16), x[:, :-c]])
+    u = np.hstack([np.zeros((h, c), np.int16), b[:, :-c]])
+    pa, pb, pc = np.abs(b - u), np.abs(a - u), np.abs(a + b - 2 * u)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, u))
+    raw = np.hstack([np.full((h, 1), 4), (x - pred) & 0xFF]).astype(np.uint8)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, png._COLOUR_TYPES[c], 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(png._SIGNATURE + png._chunk(b"IHDR", ihdr)
+                + png._chunk(b"IDAT", zlib.compress(raw.tobytes()))
+                + png._chunk(b"IEND", b""))
+
+
+def step_vs_plain(label: str, c_args, b_args) -> dict:
+    """Kernels A, B and C on one ``train_step``'s own inputs (captured by
+    ``backward_inputs`` and ``blur_inputs``) against their plain versions:
+    A by the knife-edge bound, its exit state equal to the step's; B
+    ``torch.equal`` on the step's SSIM planes and their cotangents; C by
+    ``c_vs_plain``. Printed; returns max |Δ| per kernel."""
+    import torch
+
+    from gslm_tpu_torch.ops import rasterize_cuda as rc
+    from gslm_tpu_torch.ops.blur_cuda import blur_plain, blur_same
+    rec, st, cn, ntx, vrows, _, xstate, _ = c_args
+    with torch.no_grad():
+        got, walked = rc.composite_tiles(rec, st, cn, ntx, vrows)
+        want, _ = rc.composite_tiles_plain(rec, st, cn, ntx, vrows)
+        torch.cuda.synchronize()
+        ok, a_err = knife_edge_ok(got[:, :rc.IMG_ROWS], want[:, :rc.IMG_ROWS])
+        flips = float((got[:, 6] != want[:, 6]).float().mean())
+        same_exit = torch.equal(got[:, rc.IMG_ROWS:], xstate)
+        del got, want
+        b_err, b_shapes = 0.0, []
+        for planes, taps in b_args:
+            got, want = blur_same(planes, taps), blur_plain(planes, taps)
+            torch.cuda.synchronize()
+            b_err = max(b_err, float((got - want).abs().max()))
+            b_shapes.append(tuple(planes.shape))
+            check(torch.equal(got, want), f"kernel B differs from blur_plain "
+                  f"on {label}'s planes {tuple(planes.shape)}")
+            del got, want
+    print(f"kernel A vs plain ({label}, {int(cn.sum())} records in "
+          f"{cn.shape[0]} tiles, at most {int(cn.max())} per tile): max|d| "
+          f"{a_err:.3g}; exit positions differ at {flips:.2e} of pixels; "
+          f"exit state {'equal' if same_exit else 'NOT equal'} to the "
+          f"step's; kernel B vs plain on the step's {len(b_shapes)} plane "
+          f"stacks {b_shapes}: max|d| {b_err:.3g}", flush=True)
+    check(ok, f"kernel A disagrees with composite_tiles_plain on {label}")
+    check(flips <= 0.01, f"kernel A's exit state disagrees with plain on "
+          f"{label}")
+    check(bool((walked <= cn).all()), f"kernel A walked past a segment on "
+          f"{label}")
+    check(same_exit, f"kernel A's exit state on {label} differs from the "
+          f"step's own")
+    return {"A": a_err, "B": b_err, "C": c_vs_plain(label, *c_args)}
+
+
+def scene_phase(dev, n_gauss: int, height: int, width: int, tag: str,
+                kernels: list[dict]) -> None:
+    """Phase 9 (cell scene-densify-131k-1080p). Adds the phase's launches
+    to the kernel entries A-E in ``kernels``."""
+    import math
+    import tempfile
+
+    import torch
+
+    from gslm_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+    from gslm_tpu_torch.config import OptimizationParams
+    from gslm_tpu_torch.data import colmap
+    from gslm_tpu_torch.data.png import read_png, write_png
+    from gslm_tpu_torch.densify import densify_and_prune, reset_opacity
+    from gslm_tpu_torch.models.cameras import batch_from_metas
+    from gslm_tpu_torch.models.gaussians import (PARAM_GROUPS, GaussianAux,
+                                                 GaussianParams,
+                                                 create_from_pcd)
+    from gslm_tpu_torch.models.scene import Scene
+    from gslm_tpu_torch.ops.knn import mean_sq_dist_3nn
+    from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig
+    from gslm_tpu_torch.ops.sh import sh2rgb
+    from gslm_tpu_torch.optim import AdamState, init_adam
+    from gslm_tpu_torch.renderer import batch_render, overflow_probe
+    from gslm_tpu_torch.solver.residuals import scalar_training_loss
+    from gslm_tpu_torch.train import train_step
+    from gslm_tpu_torch.utils.graphics import fov2focal, rotmat2qvec
+    from gslm_tpu_torch.utils.synthetic import make_camera, random_gaussians
+
+    bg = torch.zeros(3, device=dev)
+    opt = OptimizationParams()
+
+    def probe_caps(params, batch):
+        pr = overflow_probe(params, batch, config=RasterConfig(cull=True),
+                            active_sh_degree=3, per_view=True)
+        n_aabb, n_live = int(pr["n_aabb"].max()), int(pr["n_live"].max())
+        return n_aabb, n_live, caps_from_counts(n_aabb, n_live)
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_scene_")
+    try:
+        src = os.path.join(tmp.name, "scene")
+        model = os.path.join(tmp.name, "model")
+        sparse = os.path.join(src, "sparse", "0")
+        os.makedirs(sparse)
+        os.makedirs(os.path.join(src, "images"))
+
+        # ---- 1. the headline scene written as a COLMAP scene ------------
+        t0 = time.perf_counter()
+        scene_params = random_gaussians(
+            np.random.default_rng(0), n=n_gauss, capacity=n_gauss,
+            sh_degree=3, num_images=1, spread=1.5, scale_range=(-5.5, -3.5),
+            device=dev)
+        metas = [make_camera(height=height, width=width,
+                             angle=2 * math.pi * i / SCENE_VIEWS,
+                             exposure_idx=i) for i in range(SCENE_VIEWS)]
+        view_caps = probe_caps(scene_params,
+                               batch_from_metas(metas, device=dev))[2]
+        written, cams, images, png_ms, render_ms = {}, {}, {}, [], []
+        for i, m in enumerate(metas):
+            name = f"view_{i:03d}.png"
+            with torch.no_grad():
+                out, ms = cuda_timed(lambda: batch_render(
+                    scene_params, batch_from_metas([m], device=dev), bg,
+                    config=view_caps))
+            check(int(out.overflow) == 0, f"view {i} render overflows")
+            render_ms.append(ms)
+            img = (np.clip(out.render[0].cpu().numpy(), 0, 1) * 255).astype(
+                np.uint8).transpose(1, 2, 0)
+            t1 = time.perf_counter()
+            write_png(os.path.join(src, "images", name), img)
+            png_ms.append((time.perf_counter() - t1) * 1e3)
+            written[name] = img
+            cams[i + 1] = colmap.ColmapCamera(
+                i + 1, "PINHOLE", width, height,
+                np.array([fov2focal(m.fovx, width), fov2focal(m.fovy, height),
+                          width / 2, height / 2]))
+            images[i + 1] = colmap.ColmapImage(
+                i + 1, rotmat2qvec(m.R.T), m.T.astype(np.float64), i + 1,
+                name, np.zeros((0, 2)), np.zeros(0, np.int64))
+        colmap.write_cameras_binary(cams, os.path.join(sparse, "cameras.bin"))
+        colmap.write_images_binary(images, os.path.join(sparse, "images.bin"))
+        xyz = scene_params.xyz.detach().cpu().numpy()
+        rgb = (np.clip(sh2rgb(scene_params.features_dc.detach()[:, 0])
+                       .cpu().numpy(), 0, 1) * 255).astype(np.uint8)
+        colmap.write_points3d_binary(xyz.astype(np.float64), rgb,
+                                     np.zeros(n_gauss),
+                                     os.path.join(sparse, "points3D.bin"))
+        write_s = time.perf_counter() - t0
+        del scene_params
+        decode_ms = []
+        for name in list(written)[:2]:
+            t1 = time.perf_counter()
+            read_png(os.path.join(src, "images", name))
+            decode_ms.append((time.perf_counter() - t1) * 1e3)
+        png_bytes = os.path.getsize(os.path.join(src, "images", name))
+        t1 = time.perf_counter()
+        back = colmap.read_points3d_binary(os.path.join(sparse,
+                                                        "points3D.bin"))
+        points_ms = (time.perf_counter() - t1) * 1e3
+        check(np.array_equal(back[0], xyz.astype(np.float64))
+              and np.array_equal(back[1], rgb),
+              "points3D.bin not read back exactly")
+        # files as other tools write them: every row Paeth, a 1080p view
+        # and an 800x800 RGBA crop (a Blender scene's size)
+        paeth_ms = {}
+        rgba = np.concatenate([img[:800, :800], img[:800, :800, 1:2]], 2)
+        for label, pix in (("1080p RGB", img), ("800x800 RGBA", rgba)):
+            path = os.path.join(tmp.name, "paeth.png")
+            write_paeth_png(path, pix)
+            t1 = time.perf_counter()
+            back = read_png(path)
+            paeth_ms[label] = (time.perf_counter() - t1) * 1e3
+            check(np.array_equal(back, pix), f"Paeth-filtered {label} PNG "
+                  f"not read back exactly")
+        print(f"{tag} scene written: {SCENE_VIEWS} views {width}x{height} "
+              f"(batch_render through kernel A "
+              f"{statistics.median(render_ms):.3f} ms median), {n_gauss} "
+              f"points in {write_s:.3f} s; PNG encode "
+              f"{statistics.median(png_ms):.1f} ms per image (median of "
+              f"{len(png_ms)}), decode {statistics.median(decode_ms):.1f} ms "
+              f"(median of {len(decode_ms)}), {png_bytes} bytes per PNG; "
+              f"points3D.bin read back in {points_ms:.1f} ms; "
+              f"decode of a Paeth-filtered PNG (ms, one each): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in paeth_ms.items()),
+              flush=True)
+
+        # ---- 2. the scene loaded on the card ----------------------------
+        t0 = time.perf_counter()
+        scene = Scene(src, model, resolution=1, shuffle=False,
+                      capacity=2 * n_gauss, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        train_cams = scene.get_train_cameras()
+        check(len(train_cams) == SCENE_VIEWS,
+              f"{len(train_cams)} train cameras, expected {SCENE_VIEWS}")
+        for c, m in zip(train_cams, metas):
+            want = written[c.image_name].transpose(2, 0, 1).astype(
+                np.float32) / 255.0
+            check(np.array_equal(c.image, want),
+                  f"{c.image_name}: loaded pixels differ from those written")
+            check(np.allclose(c.R, m.R, rtol=0, atol=1e-6)
+                  and np.allclose(c.T, m.T, rtol=0, atol=1e-6)
+                  and abs(c.fovx - m.fovx) <= 1e-6
+                  and abs(c.fovy - m.fovy) <= 1e-6,
+                  f"{c.image_name}: R, T or FoV not round-tripped")
+        params, aux = scene.params, scene.aux
+        n_alive = int(params.alive.sum())
+        check(n_alive == n_gauss, f"{n_alive} alive slots, expected {n_gauss}")
+        pts = torch.tensor(scene.scene_info.points, dtype=torch.float32,
+                           device=dev)
+        msd, knn_ms = cuda_timed(lambda: mean_sq_dist_3nn(pts))
+        (fresh, _), pcd_ms = cuda_timed(lambda: create_from_pcd(
+            scene.scene_info.points, scene.scene_info.colors,
+            num_images=SCENE_VIEWS, capacity=2 * n_gauss, mean_sq_dist=msd,
+            device=dev))
+        check(all(torch.equal(getattr(fresh, g), getattr(params, g))
+                  for g in PARAM_GROUPS)
+              and torch.equal(fresh.alive, params.alive),
+              "create_from_pcd given the 3-NN differs from the Scene's model")
+        del fresh
+        rows = np.sort(np.random.default_rng(4).choice(
+            n_gauss, min(KNN_SAMPLE, n_gauss), replace=False))
+        want = knn_float64(scene.scene_info.points.astype(np.float32), rows)
+        knn_rel = float(np.max(np.abs(msd.cpu().numpy()[rows] - want) / want))
+        check(knn_rel <= 1e-5, f"3-NN off float64 by {knn_rel:.3g} relative")
+        scale_want = torch.log(torch.sqrt(torch.clamp(msd, min=1e-7)))
+        check(torch.equal(params.scaling[:n_gauss, 0], scale_want),
+              "the model's log-scales are not the 3-NN's")
+        print(f"{tag} Scene loaded in {load_s:.3f} s: {len(train_cams)} "
+              f"cameras, pixels bitwise equal to those written, R/T/FoV "
+              f"round-tripped to 1e-6, {n_alive} alive of "
+              f"{params.capacity}; 3-NN {knn_ms:.3f} ms, create_from_pcd "
+              f"given the 3-NN {pcd_ms:.3f} ms (its model equal to the "
+              f"Scene's); 3-NN vs float64 numpy on {len(rows)} rows: "
+              f"max rel {knn_rel:.3g}; log-scales in "
+              f"[{float(params.scaling.detach()[:n_gauss].min()):.3f}, "
+              f"{float(params.scaling.detach()[:n_gauss].max()):.3f}]; "
+              f"cameras extent "
+              f"{scene.cameras_extent:.4f}", flush=True)
+
+        # ---- 3. training with density control -------------------------
+        batches = [batch_from_metas([c], device=dev) for c in train_cams]
+        all_views = batch_from_metas(train_cams, device=dev)
+        n_aabb, n_live, rcfg = probe_caps(params, all_views)
+        print(f"scene overflow_probe (max over {SCENE_VIEWS} views): n_aabb "
+              f"{n_aabb}, n_live {n_live} (the headline scene's TRAIN_CAPS: "
+              f"dup {TRAIN_CAPS['dup_capacity']}, live "
+              f"{TRAIN_CAPS['live_capacity']}); capacities + 5 %: dup "
+              f"{rcfg.dup_capacity}, live {rcfg.live_capacity}", flush=True)
+        state = init_adam(params)
+        extent = scene.cameras_extent
+        thresholds = (opt.densify_grad_threshold, 0.005, extent, 0.0,
+                      opt.percent_dense)
+        ts_kw = dict(opt=opt, active_sh_degree=3, use_exp=False,
+                     sparse_adam=False, update_stats=True)
+        gen = torch.Generator(dev).manual_seed(9)
+        step_ms, losses, events, busy, checked = {}, [], [], {}, {}
+
+        def step(it):
+            nonlocal params, aux, state
+            cam = batches[(it - 1) % SCENE_VIEWS]
+
+            def fn():
+                return train_step(params, aux, state, cam, bg, it, extent,
+                                  0.0, rcfg=rcfg, **ts_kw)
+
+            if it in PROFILED_STEPS:
+                res = []
+                busy[it] = device_busy(lambda: res.append(fn()))
+                out = res[0]
+            elif it in CHECKED_STEPS:
+                with backward_inputs() as c_in, blur_inputs() as b_in:
+                    out = fn()
+                check(len(c_in) == 1 and len(b_in) == 2, f"train_step {it}: "
+                      f"{len(c_in)} kernel C and {len(b_in)} kernel B "
+                      f"launches captured, expected 1 and 2")
+                checked[it] = (c_in[0], b_in)
+            else:
+                out, step_ms[it] = cuda_timed(fn)
+            params, aux, state, m = out
+            losses.append(float(m["loss"]))
+            check(int(m["overflow"]) == 0, f"train_step {it} overflows")
+            check(math.isfinite(losses[-1]), f"train_step {it} loss")
+
+        def densify(it):
+            nonlocal params, aux, state, rcfg
+            c = params.capacity
+            noise = tuple(torch.randn((c, 3), generator=gen, device=dev)
+                          for _ in range(2))
+
+            def copy(x):
+                return x.detach().to("cpu", copy=True)
+
+            host = GaussianParams(**{g: copy(getattr(params, g))
+                                     for g in PARAM_GROUPS},
+                                  sh_degree=params.sh_degree,
+                                  alive=copy(params.alive))
+            host_aux = GaussianAux(*(copy(getattr(aux, f)) for f in (
+                "max_radii2d", "xyz_gradient_accum", "denom")))
+            host_state = AdamState(
+                mu={g: copy(v) for g, v in state.mu.items()},
+                nu={g: copy(v) for g, v in state.nu.items()},
+                step=state.step)
+            edge = knife_rows(host, host_aux, *thresholds)
+            n_edge = int(edge.sum())
+            (params, aux, state, info), ms = cuda_timed(
+                lambda: densify_and_prune(params, aux, state, noise,
+                                          *thresholds))
+            host_info = densify_and_prune(
+                host, host_aux, host_state, tuple(x.cpu() for x in noise),
+                *thresholds)[3]
+            got = {k: int(v) for k, v in info.items()}
+            want = {k: int(v) for k, v in host_info.items()}
+            alive_diff = int((params.alive.cpu() != host.alive).sum())
+            check(all(abs(got[k] - want[k]) <= n_edge for k in got)
+                  and alive_diff <= 2 * n_edge,
+                  f"densify at {it}: card {got}, CPU {want}, {alive_diff} "
+                  f"alive slots differ, {n_edge} rows at a threshold")
+            rel = {}
+            if got == want and alive_diff == 0:
+                # the same allocation: the rows written must agree
+                for g in PARAM_GROUPS:
+                    w = getattr(host, g).detach()
+                    d = (getattr(params, g).detach().cpu() - w).abs().max()
+                    rel[g] = float(d) / (float(w.abs().max()) + 1e-30)
+                    check(rel[g] <= 1e-6, f"densify at {it}: {g} off the "
+                          f"CPU run by {rel[g]:.3g} of max")
+                    check(all(torch.equal(getattr(state, mm)[g].cpu(),
+                                          getattr(host_state, mm)[g])
+                              for mm in ("mu", "nu")),
+                          f"densify at {it}: {g} moments differ")
+            check(got["n_dropped"] == 0, f"densify at {it} dropped "
+                  f"{got['n_dropped']} requests")
+            check(got["n_cloned"] + got["n_split"] > 0,
+                  f"densify at {it} added no Gaussian")
+            events.append((it, got, ms, n_edge))
+            # the model changed: capacities from a fresh probe (before the
+            # opacity reset, which only shrinks the counts)
+            n_aabb, n_live, rcfg = probe_caps(params, all_views)
+            print(f"{tag} densify_and_prune after step {it}: {got} "
+                  f"({ms:.3f} ms); the CPU run on copies: "
+                  f"{'equal' if got == want else want}, alive slots "
+                  f"differing {alive_diff}, rows within {KNIFE_REL:g} "
+                  f"relative of a threshold {n_edge}; parameters vs CPU, "
+                  f"max|d|/max: "
+                  f"{ {g: float(f'{v:.3g}') for g, v in rel.items()} }; "
+                  f"overflow_probe after it: n_aabb {n_aabb}, n_live "
+                  f"{n_live}, capacities + 5 %: dup {rcfg.dup_capacity}, "
+                  f"live {rcfg.live_capacity}", flush=True)
+
+        zero_launches()
+        for it in range(1, SCENE_STEPS + 1):
+            step(it)
+            if it in DENSIFY_AT:
+                densify(it)
+        torch.cuda.synchronize()
+        got = launches()
+        want = {"A": SCENE_STEPS, "B": 2 * SCENE_STEPS, "C": SCENE_STEPS,
+                "D": 0, "E": 0}
+        print(f"scene train_step launches over {SCENE_STEPS} steps: {got}",
+              flush=True)
+        check(got == want, f"scene train_step launches {got}, expected "
+              f"{want} (per step A 1, B 2, C 1)")
+        counted = dict(got)
+        # the launches that hold the kernels to plain come after the count
+        errs = [step_vs_plain(f"scene step {CHECKED_STEPS[0]}",
+                              *checked.pop(CHECKED_STEPS[0]))]
+        params, state = reset_opacity(params, state)
+        check(float(torch.sigmoid(params.opacity.detach()[params.alive]).max())
+              <= 0.01 + 1e-7, "reset_opacity left an opacity above 0.01")
+        zero_launches()
+        for it in range(SCENE_STEPS + 1, SCENE_STEPS + SCENE_AFTER_RESET + 1):
+            step(it)
+        torch.cuda.synchronize()
+        got = launches()
+        want = {k: v * SCENE_AFTER_RESET // SCENE_STEPS
+                for k, v in want.items()}
+        check(got == want, f"launches after the reset {got}, expected "
+              f"{want}")
+        counted = {k: counted[k] + got[k] for k in counted}
+        errs.append(step_vs_plain(
+            f"scene step {CHECKED_STEPS[1]}, after the reset",
+            *checked.pop(CHECKED_STEPS[1])))
+        print(f"scene loss over {len(losses)} steps: first "
+              f"{[round(v, 5) for v in losses[:3]]}, before the first "
+              f"densify {losses[DENSIFY_AT[0] - 1]:.5f}, before the reset "
+              f"{losses[SCENE_STEPS - 1]:.5f}, last "
+              f"{[round(v, 5) for v in losses[SCENE_STEPS:]]}", flush=True)
+        iteration = SCENE_STEPS + SCENE_AFTER_RESET
+
+        # ---- 4. checkpoint and PLY round trips ---------------------------
+        ck = os.path.join(tmp.name, "chkpnt.npz")
+        t0 = time.perf_counter()
+        save_checkpoint(ck, params, aux, state, iteration, extent)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lp, laux, lstate, lit, lscale = load_checkpoint(ck, device=dev)
+        torch.cuda.synchronize()
+        load_ck_s = time.perf_counter() - t0
+        same = [torch.equal(getattr(lp, g), getattr(params, g))
+                for g in PARAM_GROUPS]
+        same += [torch.equal(lp.alive, params.alive)]
+        same += [torch.equal(getattr(laux, f), getattr(aux, f)) for f in (
+            "max_radii2d", "xyz_gradient_accum", "denom")]
+        same += [torch.equal(getattr(lstate, mm)[g], getattr(state, mm)[g])
+                 for mm in ("mu", "nu") for g in PARAM_GROUPS]
+        check(all(same) and (lstate.step, lit, lscale) == (
+            state.step, iteration, extent),
+            "the checkpoint did not round-trip bit for bit")
+
+        def forward(p):
+            with torch.no_grad():
+                return scalar_training_loss(
+                    p, batches[0], bg, config=rcfg,
+                    lambda_dssim=opt.lambda_dssim, active_sh_degree=3)[0]
+
+        loss_live, loss_loaded = forward(params), forward(lp)
+        check(torch.equal(loss_live, loss_loaded),
+              f"loss from the loaded state {float(loss_loaded)!r} vs the live "
+              f"state's {float(loss_live)!r}")
+        del lp, laux, lstate
+        scene.save(iteration, params)
+        back = Scene(src, model, resolution=1, shuffle=False,
+                     load_iteration=-1, capacity=params.capacity, device=dev)
+        n = int(params.alive.sum())
+        check(back.loaded_iter == iteration
+              and int(back.params.alive.sum()) == n
+              and all(torch.equal(getattr(back.params, g)[:n],
+                                  getattr(params, g)[params.alive])
+                      for g in PARAM_GROUPS[:-1]),
+              "Scene.save and reload did not give the live rows back")
+        print(f"{tag} checkpoint {os.path.getsize(ck)} bytes: save "
+              f"{save_s:.3f} s, load {load_ck_s:.3f} s, every array bitwise "
+              f"equal, forward loss from the loaded state bitwise equal "
+              f"({float(loss_live):.6f}); Scene.save({iteration}) and reload: "
+              f"{n} live rows bitwise equal", flush=True)
+    finally:
+        tmp.cleanup()
+
+    before = [step_ms[i] for i in range(2, DENSIFY_AT[0] + 1) if i in step_ms]
+    after = [step_ms[i] for i in range(DENSIFY_AT[-1] + 1, iteration + 1)
+             if i in step_ms]
+    print(f"{tag} scene train_step (ms, CUDA events): median "
+          f"{statistics.median(before):.3f} over steps 2-{DENSIFY_AT[0]} "
+          f"({n_alive} alive), {statistics.median(after):.3f} after the "
+          f"reset ({n} alive); densify_and_prune "
+          + ", ".join(f"{ms:.3f} ms after step {it}" for it, _, ms, _ in events),
+          flush=True)
+    for it, (n_k, busy_ms, wall_ms) in busy.items():
+        print(f"{tag} scene train_step {it} profiled: {n_k} CUDA kernels, "
+              f"device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
+              f"({busy_ms / wall_ms:.3f}; the profiler adds host time)",
+              flush=True)
+    for entry, key in zip(kernels, "ABCDE"):
+        entry["launches_by_path"]["scene_densify"] = counted[key]
+        entry["launches"] += counted[key]
+        if key in errs[0]:
+            entry["max_abs_err_scene_densify"] = max(e[key] for e in errs)
 
 
 if __name__ == "__main__":

@@ -34,6 +34,11 @@ class CameraMeta(Struct):
     width: int
     height: int
     image_name: str
+    image_path: str | None = None
+    depth_path: str | None = None
+    depth_params: dict | None = None
+    is_test: bool = False
+    # filled by Scene when images are loaded:
     image: np.ndarray | None = None        # (3, H, W) float32 in [0,1]
     alpha_mask: np.ndarray | None = None   # (1, H, W) float32
     invdepthmap: np.ndarray | None = None  # (1, H, W) float32

@@ -22,7 +22,10 @@ import torch
 from torch import nn
 
 from gslm_tpu_torch.device import resolve_device
+from gslm_tpu_torch.ops.knn import mean_sq_dist_3nn
+from gslm_tpu_torch.ops.sh import MAX_SH_DEGREE, num_sh_coeffs, rgb2sh
 from gslm_tpu_torch.struct import Struct
+from gslm_tpu_torch.utils.general import inverse_sigmoid
 
 # Raw values of dead (padding) slots: transparent, tiny, at the origin.
 DEAD_OPACITY_LOGIT = -12.0
@@ -125,6 +128,11 @@ def init_aux(capacity: int, num_points: int | None = None,
     return torch.arange(capacity, device=resolve_device(device)) < n
 
 
+def round_capacity(n: int, multiple: int = 256) -> int:
+    """Round a live count up to a lane-aligned capacity."""
+    return max(multiple, ((n + multiple - 1) // multiple) * multiple)
+
+
 def pad_to_capacity(params: GaussianParams, capacity: int) -> GaussianParams:
     """Pad the per-Gaussian groups with dead slots up to ``capacity``; the
     new slots are not alive."""
@@ -151,6 +159,42 @@ def pad_to_capacity(params: GaussianParams, capacity: int) -> GaussianParams:
         opacity=pad(g["opacity"], DEAD_OPACITY_LOGIT),
         exposure=g["exposure"], sh_degree=params.sh_degree,
         alive=torch.cat([params.alive, params.alive.new_zeros(extra)]))
+
+
+def create_from_pcd(points: np.ndarray, colors: np.ndarray, num_images: int,
+                    sh_degree: int = 3, capacity: int | None = None,
+                    mean_sq_dist=None, device=None
+                    ) -> tuple[GaussianParams, GaussianAux]:
+    """A model from a point cloud, the 3DGS recipe: SH DC from the colours,
+    zero higher-order SH, log-scales from the square root of the mean
+    squared 3-NN distance, identity quaternions, opacity 0.1, identity
+    per-image exposure. ``mean_sq_dist`` (P,) is computed on ``device``
+    (``ops/knn.py``) when not given. Returns ``(params, aux)`` at
+    ``capacity`` (default ``round_capacity(P)``), the first P slots
+    alive."""
+    dev = resolve_device(device)
+    n = points.shape[0]
+    k = num_sh_coeffs(min(sh_degree, MAX_SH_DEGREE)) - 1
+    if capacity is None:
+        capacity = round_capacity(n)
+
+    xyz = torch.tensor(np.asarray(points, np.float32), device=dev)
+    f_dc = rgb2sh(torch.tensor(np.asarray(colors, np.float32),
+                               device=dev)).reshape(n, 1, 3)
+    f_rest = torch.zeros((n, k, 3), device=dev)
+    if mean_sq_dist is None:
+        mean_sq_dist = mean_sq_dist_3nn(xyz)
+    dist2 = torch.clamp(torch.as_tensor(mean_sq_dist, dtype=torch.float32,
+                                        device=dev), min=1e-7)
+    scales = torch.log(torch.sqrt(dist2))[:, None].repeat(1, 3)
+    rots = torch.zeros((n, 4), device=dev)
+    rots[:, 0] = 1.0
+    opacities = inverse_sigmoid(0.1 * torch.ones((n, 1), device=dev))
+    exposure = torch.eye(3, 4, device=dev).expand(num_images, 3, 4).clone()
+    params = GaussianParams(xyz=xyz, features_dc=f_dc, features_rest=f_rest,
+                            scaling=scales, rotation=rots, opacity=opacities,
+                            exposure=exposure, sh_degree=sh_degree)
+    return pad_to_capacity(params, capacity), GaussianAux.zeros(capacity, dev)
 
 
 def params_from_numpy(d: dict[str, np.ndarray], sh_degree: int, alive=None,

@@ -10,7 +10,9 @@ rounds differently, and it has no visibility mask.
 
 Moments and gradients are dictionaries keyed by group name. ``adam_step``
 updates the parameters and moments in place under ``torch.no_grad()``
-(the JAX version returns new arrays), which saves the copies.
+(the JAX version returns new arrays), which saves the copies; so do
+``zero_state_rows`` and ``zero_state_group``, densification's fixed-capacity
+form of optimizer surgery.
 """
 
 from __future__ import annotations
@@ -93,3 +95,24 @@ def adam_step(params: GaussianParams, grads: dict[str, torch.Tensor],
         nu.copy_(nu_n)
     state.step = t
     return params, state
+
+
+@torch.no_grad()
+def zero_state_rows(state: AdamState, rows: torch.Tensor,
+                    groups=tuple(g for g in PARAM_GROUPS if g != "exposure")
+                    ) -> AdamState:
+    """Zero the moment rows of the (C,) bool mask ``rows`` in the given
+    groups, in place. Returns ``state``."""
+    for g in groups:
+        m = rows.reshape((-1,) + (1,) * (state.mu[g].ndim - 1))
+        for moments in (state.mu, state.nu):
+            moments[g].masked_fill_(m, 0.0)
+    return state
+
+
+@torch.no_grad()
+def zero_state_group(state: AdamState, group: str) -> AdamState:
+    """Zero a whole group's moments, in place. Returns ``state``."""
+    state.mu[group].zero_()
+    state.nu[group].zero_()
+    return state

@@ -1,6 +1,6 @@
 """General numeric helpers (the part of gslm_tpu/utils/general.py the
-render and Adam paths need): quaternion normalisation and the learning-rate
-schedules."""
+render, Adam and density-control paths need): the opacity activation's
+inverse, quaternion algebra and the learning-rate schedules."""
 
 from __future__ import annotations
 
@@ -10,9 +10,26 @@ import numpy as np
 import torch
 
 
+def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.log(x / (1 - x))
+
+
 def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True),
                            min=eps)
+
+
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """(..., 4) normalized (w,x,y,z) quaternion → (..., 3, 3) rotation."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                     2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                     1 - 2 * (x * x + y * y)], -1),
+    ], dim=-2)
 
 
 def expon_lr(step, lr_init: float, lr_final: float, lr_delay_steps: int = 0,

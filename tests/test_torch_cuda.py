@@ -39,7 +39,10 @@ without depth_grad, on the small scene's bucket records and on the
 rects; against its plain version on ragged views (ntx = 5, 9). Kernel B
 equal to ``blur_plain`` (``torch.equal``) for k in {1, 3, 5, 11, 15} on
 (15, 67, 133), (1, 5, 3) and (2, 1080, 1920): forward, the
-reversed-tap VJP and the JVP."""
+reversed-tap VJP and the JVP. ``densify_and_prune`` on the card equal to
+its run on CPU copies of the same inputs and noise: the counts and
+``alive`` exactly, parameters within 1e-6 of max |value| per group (CUDA's
+and the CPU's float32 exp and sigmoid may differ in the last bit)."""
 
 import numpy as np
 import pytest
@@ -47,7 +50,9 @@ import torch
 import torch.autograd.forward_ad as fwAD
 
 from gslm_tpu_torch.config import LMParams, OptimizationParams
-from gslm_tpu_torch.models.gaussians import PARAM_GROUPS, GaussianAux
+from gslm_tpu_torch.densify import densify_and_prune
+from gslm_tpu_torch.models.gaussians import (PARAM_GROUPS, GaussianAux,
+                                             params_from_numpy)
 from gslm_tpu_torch.ops.blur_cuda import blur, blur_plain, blur_same
 from gslm_tpu_torch.ops.projection import preprocess
 from gslm_tpu_torch.ops.rasterize_cuda import (
@@ -59,7 +64,7 @@ from gslm_tpu_torch.ops.rasterize_cuda import (
     composite_tiles_jvp_unmasked, composite_tiles_plain, tile_records)
 from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig
 from gslm_tpu_torch.ops.ssim import gaussian_taps
-from gslm_tpu_torch.optim import init_adam
+from gslm_tpu_torch.optim import AdamState, init_adam
 from gslm_tpu_torch.renderer import batch_render, render
 from gslm_tpu_torch.train import loss_and_grads, train_step
 from gslm_tpu_torch.train_lm import lm_outer_step
@@ -682,3 +687,50 @@ def test_bucket_bwd_kernel_equals_guard(cuda, bucket, case, depth_grad):
             for f in range(10):
                 scale = float(want[:, f].abs().max()) + 1e-12
                 assert _knife_edge(got[:, f], want[:, f], scale), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("screen", [0.0, 20.0])
+def test_densify_and_prune_on_card_equals_cpu(cuda, screen):
+    rng = np.random.default_rng(12)
+    c, n = 8192, 5000
+    params = random_gaussians(rng, n=n, capacity=c, spread=1.5,
+                              scale_range=(-5.0, -1.5), device=cuda)
+    with torch.no_grad():
+        params.opacity[:n] = torch.tensor(
+            rng.normal(-1.0, 3.0, (n, 1)).astype(np.float32), device=cuda)
+    stats = (rng.random(c) * 30, rng.random(c) * 4e-4, rng.integers(0, 3, c))
+    aux = GaussianAux(*(torch.tensor(a.astype(np.float32), device=cuda)
+                        for a in stats))
+    gen = torch.Generator(cuda).manual_seed(5)
+    opt = AdamState(*({g: torch.randn(getattr(params, g).shape, device=cuda,
+                                      generator=gen) for g in PARAM_GROUPS}
+                      for _ in range(2)), step=3)
+    noise = tuple(torch.randn((c, 3), generator=gen, device=cuda)
+                  for _ in range(2))
+
+    def cpu(x):
+        return x.detach().cpu().clone()
+
+    host = params_from_numpy({g: cpu(getattr(params, g)).numpy()
+                              for g in PARAM_GROUPS}, params.sh_degree,
+                             alive=cpu(params.alive).numpy(), device="cpu")
+    host_aux = GaussianAux(*(cpu(getattr(aux, f)) for f in (
+        "max_radii2d", "xyz_gradient_accum", "denom")))
+    host_opt = AdamState(mu={g: cpu(v) for g, v in opt.mu.items()},
+                         nu={g: cpu(v) for g, v in opt.nu.items()}, step=3)
+    thresholds = (0.0002, 0.005, 10.0, screen, 0.01)
+    _, _, _, info = densify_and_prune(params, aux, opt, noise, *thresholds)
+    _, _, _, host_info = densify_and_prune(
+        host, host_aux, host_opt, tuple(cpu(x) for x in noise), *thresholds)
+    got = {k: int(v) for k, v in info.items()}
+    assert got == {k: int(v) for k, v in host_info.items()}
+    assert got["n_cloned"] > 0 and got["n_split"] > 0 and got["n_pruned"] > 0
+    assert torch.equal(params.alive.cpu(), host.alive)
+    for g in PARAM_GROUPS:
+        want = getattr(host, g).detach()
+        torch.testing.assert_close(getattr(params, g).detach().cpu(), want,
+                                   rtol=0, atol=1e-6 * float(want.abs().max()))
+        for m in ("mu", "nu"):
+            assert torch.equal(getattr(opt, m)[g].cpu(),
+                               getattr(host_opt, m)[g]), (m, g)

@@ -1,5 +1,6 @@
-"""gslm_tpu_torch stands alone: it imports neither JAX nor gslm_tpu, and
-its entry points never drift onto the CPU unasked."""
+"""gslm_tpu_torch stands alone: it imports neither JAX nor gslm_tpu, nor,
+when its modules are imported, Pillow or OpenCV (absent where the card
+is); and its entry points never drift onto the CPU unasked."""
 
 import os
 import subprocess
@@ -21,8 +22,9 @@ for name in names:
 import chip_smoke
 import compare_kernels
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "jaxlib", "gslm_tpu")
-             or m.startswith(("jax.", "jaxlib.", "gslm_tpu.")))
+             if m in ("jax", "jaxlib", "gslm_tpu", "PIL", "cv2")
+             or m.startswith(("jax.", "jaxlib.", "gslm_tpu.", "PIL.",
+                              "cv2.")))
 print(len(names), bad)
 assert not bad, bad
 """
@@ -34,11 +36,12 @@ def test_port_imports_no_jax_and_no_gslm_tpu():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split()[0])
-    assert n_modules >= 15
+    assert n_modules >= 22
 
 
 def test_entry_points_need_a_device_without_cuda(monkeypatch):
     from gslm_tpu_torch.models.cameras import camera_from_arrays
+    from gslm_tpu_torch.models.gaussians import create_from_pcd
     from gslm_tpu_torch.utils.synthetic import (make_camera, random_gaussians,
                                                 ring_camera_batch)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -51,3 +54,9 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
         camera_from_arrays(meta.R, meta.T, meta.fovx, meta.fovy, 16, 16)
     assert random_gaussians(np.random.default_rng(0), n=8,
                             device="cpu").xyz.device.type == "cpu"
+    pts = np.random.default_rng(1).normal(size=(8, 3))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_from_pcd(pts, np.full((8, 3), 0.5), num_images=1)
+    params, _ = create_from_pcd(pts, np.full((8, 3), 0.5), num_images=1,
+                                device="cpu")
+    assert params.xyz.device.type == "cpu"
