@@ -1,10 +1,46 @@
-"""Configuration groups (gslm_tpu/config.py). The optimiser group the Adam
-step reads and the Levenberg–Marquardt group the LM step reads; the other
-argument groups come with the trainer CLI."""
+"""Configuration groups and the command-line plumbing (gslm_tpu/config.py).
+
+The five groups carry the JAX package's fields and defaults, so one command
+line runs both packages: ``ModelParams`` (scene and output paths),
+``PipelineParams``, ``OptimizationParams`` (the Adam phase),
+``LMParams`` (the Levenberg–Marquardt phase) and ``TpuParams``
+(capacities and execution knobs). Fields the JAX package accepts and
+ignores (``data_device``, ``convert_SHs_python``, ``compute_cov3D_python``,
+``debug``) are accepted and ignored here too. Fields that only configure
+TPU execution raise at any value but their default, as ``RasterConfig``'s
+do.
+
+Configs persist to ``<model>/cfg_args`` as JSON; ``get_combined_args``
+reads that or the reference's ``Namespace`` repr."""
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+from argparse import ArgumentParser, BooleanOptionalAction, Namespace
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelParams:
+    sh_degree: int = 3
+    source_path: str = ""
+    model_path: str = ""
+    images: str = "images"
+    depths: str = ""
+    resolution: int = -1
+    white_background: bool = False
+    train_test_exp: bool = False
+    data_device: str = "tpu"           # accepted and ignored, as in JAX
+    eval: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineParams:
+    convert_SHs_python: bool = False   # accepted and ignored, as in JAX:
+    compute_cov3D_python: bool = False  # SH and covariance are always
+    debug: bool = False                 # evaluated in the preprocess
+    antialiasing: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,3 +117,111 @@ class LMParams:
                 "features_rest": self.damp_features_rest,
                 "scaling": self.damp_scaling, "rotation": self.damp_rotation,
                 "opacity": self.damp_opacity, "exposure": self.damp_exposure}
+
+
+@dataclasses.dataclass(frozen=True)
+class TpuParams:
+    """Capacities and execution knobs. ``capacity`` (0: from the point
+    count), ``dup_capacity``, ``live_capacity``, ``raster_cull`` and
+    ``raster_impl`` are read. ``max_per_tile``, ``tile_chunk``,
+    ``raster_pack``, ``mp_route_capacity`` and ``cache_dir`` configure the
+    TPU kernels and XLA only, and ``mesh_data`` / ``mesh_model`` above 1
+    need the multi-device port: any value but their default raises."""
+
+    capacity: int = 0
+    dup_capacity: int = 1 << 21
+    max_per_tile: int = 1024
+    tile_chunk: int = 64
+    raster_impl: str = "auto"
+    raster_pack: int = 0
+    raster_cull: bool = True
+    live_capacity: int = 0
+    mesh_data: int = 1
+    mesh_model: int = 1
+    mp_route_capacity: int = 0
+    cache_dir: str = ""
+
+    def __post_init__(self):
+        from gslm_tpu_torch.renderer import resolve_impl
+        for name in ("max_per_tile", "tile_chunk", "raster_pack",
+                     "mp_route_capacity", "cache_dir"):
+            default = _FIELD_DEFAULTS[name]
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"{name}={getattr(self, name)!r} configures the TPU "
+                    f"execution only, which the port does not have; leave "
+                    f"it at {default!r}")
+        if self.mesh_data * self.mesh_model > 1:
+            raise NotImplementedError(
+                f"mesh_data={self.mesh_data}, mesh_model={self.mesh_model}: "
+                "multi-device training is not ported yet")
+        resolve_impl(self.raster_impl)
+
+
+_FIELD_DEFAULTS = {f.name: f.default for f in dataclasses.fields(TpuParams)}
+
+_GROUPS = {"model": ModelParams, "pipeline": PipelineParams,
+           "opt": OptimizationParams, "lm": LMParams, "tpu": TpuParams}
+
+_SHORTHAND = {"source_path": "-s", "model_path": "-m", "images": "-i",
+              "depths": "-d", "resolution": "-r", "white_background": "-w"}
+
+
+def add_all_args(parser: ArgumentParser, groups=("model", "pipeline", "opt",
+                                                 "lm", "tpu")):
+    """One argument group per config group: ``--<field>`` (and the
+    reference's shorthand), booleans as ``--x`` / ``--no-x``."""
+    for gname in groups:
+        cls = _GROUPS[gname]
+        grp = parser.add_argument_group(gname)
+        for f in dataclasses.fields(cls):
+            flags = [f"--{f.name}"]
+            if f.name in _SHORTHAND:
+                flags.append(_SHORTHAND[f.name])
+            if f.type == "bool" or f.type is bool:
+                grp.add_argument(*flags, action=BooleanOptionalAction,
+                                 default=f.default)
+            else:
+                grp.add_argument(*flags, type=type(f.default),
+                                 default=f.default)
+
+
+def extract(args: Namespace, cls):
+    """The ``cls`` config group of a parsed ``Namespace``."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: v for k, v in vars(args).items() if k in names})
+
+
+def save_cfg_args(model_path: str, args: Namespace):
+    """Persist the merged config as ``<model_path>/cfg_args`` (JSON of the
+    scalar arguments)."""
+    os.makedirs(model_path, exist_ok=True)
+    with open(os.path.join(model_path, "cfg_args"), "w") as f:
+        json.dump({k: v for k, v in vars(args).items()
+                   if isinstance(v, (int, float, str, bool, type(None)))}, f,
+                  indent=2)
+
+
+def get_combined_args(parser: ArgumentParser, argv=None) -> Namespace:
+    """The command line (``argv``, default ``sys.argv[1:]``) over the saved
+    ``cfg_args`` of its ``--model_path``: a saved value stays unless the
+    command line gives a value other than the parser's default. Reads the
+    JSON this module writes, else the reference's ``Namespace`` repr."""
+    import sys
+    args_cmdline = parser.parse_args(sys.argv[1:] if argv is None else argv)
+    merged = {}
+    cfgpath = os.path.join(args_cmdline.model_path or "", "cfg_args")
+    if args_cmdline.model_path and os.path.exists(cfgpath):
+        with open(cfgpath) as f:
+            text = f.read()
+        try:
+            merged = json.loads(text)
+        except json.JSONDecodeError:
+            ns = eval(text, {"Namespace": Namespace})  # reference format
+            merged = vars(ns)
+    defaults = {a.dest: parser.get_default(a.dest)
+                for a in parser._actions if a.dest != "help"}
+    for k, v in vars(args_cmdline).items():
+        if v is not None and (k not in merged or v != defaults.get(k)):
+            merged[k] = v
+    return Namespace(**merged)

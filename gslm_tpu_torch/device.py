@@ -16,3 +16,14 @@ def resolve_device(device=None) -> torch.device:
                 "CUDA is not available: pass device='cpu' to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def platform_device(platform: str) -> torch.device:
+    """The command lines' ``--platform``: "" is the card (raises without
+    CUDA), "cpu" the CPU; anything else raises."""
+    if platform == "":
+        return resolve_device(None)
+    if platform == "cpu":
+        return torch.device("cpu")
+    raise ValueError(f"--platform {platform!r}: the port runs on '' (the "
+                     "CUDA card) or 'cpu'")

@@ -1,48 +1,80 @@
-"""First-order (Adam) training step (gslm_tpu/train.py).
+"""First-order (Adam) trainer (gslm_tpu/train.py): the Adam iteration, the
+training loop and its command line.
 
 One iteration: render the camera batch, (1-λ)·L1 + λ·(1-SSIM) plus the
 weighted depth L1, gradients of every parameter group and of the mean2d
 offset by autograd (kernel C and the reversed-tap blur on the card), the
-densification statistics, then Adam with per-group learning rates. The
-``training()`` loop, scene I/O and density control come with the trainer
-slice.
+densification statistics, then Adam with per-group learning rates. It is
+two functions: ``loss_and_grads`` touches no state, ``apply_update``
+updates the statistics, the parameters and the Adam moments in place;
+``train_step`` is their composition. The loop reads the render's overflow
+flag between the two, so an iteration retried at grown capacities applies
+Adam once, from the pre-step state (JAX re-runs its functional step from
+the saved state; here an update in place cannot be taken back).
+
+``training`` is the JAX loop: the shuffled view order, the SH ramp, the
+random background, the depth-weight schedule, the overflow retry, the
+densify and opacity-reset schedule, test / save / checkpoint iterations,
+``--start_checkpoint`` resume, the LM hook, the viewer and the profiler
+window. Its own draws (split noise, random backgrounds) come from one
+``torch.Generator`` seeded 0, which cannot repeat JAX's PRNG.
+
+Usage: python -m gslm_tpu_torch.train -s <dataset> -m <output> [flags]
+(on the card; ``--platform cpu`` runs on the CPU)
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+import random
+import time
+from argparse import ArgumentParser
+
+import numpy as np
 import torch
 
+from gslm_tpu_torch import config as cfg_mod
+from gslm_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
 from gslm_tpu_torch.config import OptimizationParams
-from gslm_tpu_torch.densify import add_densification_stats
-from gslm_tpu_torch.models.cameras import CameraBatch
+from gslm_tpu_torch.densify import (add_densification_stats,
+                                    densify_and_prune, reset_opacity)
+from gslm_tpu_torch.device import platform_device
+from gslm_tpu_torch.models.cameras import CameraBatch, batch_from_metas
 from gslm_tpu_torch.models.gaussians import (PARAM_GROUPS, GaussianAux,
                                              GaussianParams)
-from gslm_tpu_torch.optim import AdamState, adam_step, group_learning_rates
+from gslm_tpu_torch.models.scene import Scene
+from gslm_tpu_torch.optim import (AdamState, adam_step, group_learning_rates,
+                                  init_adam)
 from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig
+from gslm_tpu_torch.renderer import batch_render
 from gslm_tpu_torch.solver.residuals import scalar_training_loss
+from gslm_tpu_torch.utils.general import get_expon_lr_func, safe_state
 from gslm_tpu_torch.utils.image import psnr
+from gslm_tpu_torch.utils.profiling import IterTimer, trace
 
 
-def make_raster_config(n_gaussians: int, *, dup_capacity: int = 1 << 21,
-                       live_capacity: int = 0, cull: bool = True,
-                       antialiasing: bool = False,
-                       impl: str = "auto") -> RasterConfig:
-    """Rasterizer capacities for a scene of ``n_gaussians``: the JAX
-    heuristic without its TPU-only fields (tile_chunk, pack,
-    max_per_tile, mp_route_capacity). With culling, ``live_capacity`` 0
-    picks 7/8 of the AABB capacity (the surviving stream measured ~82 %)."""
-    dup = min(dup_capacity, max(1 << 14, 16 * n_gaussians))
-    live = live_capacity or (dup - (dup >> 3) if cull else 0)
+def make_raster_config(tpu: cfg_mod.TpuParams, pipe: cfg_mod.PipelineParams,
+                       height: int, width: int,
+                       n_gaussians: int) -> RasterConfig:
+    """Heuristic rasterizer capacities for a scene of ``n_gaussians``: the
+    JAX heuristic. ``height`` and ``width`` size JAX's ``tile_chunk``, a
+    TPU-only field the port does not have. With culling, a zero
+    ``live_capacity`` picks 7/8 of the AABB capacity (the surviving stream
+    measured ~82 %)."""
+    dup = min(tpu.dup_capacity, max(1 << 14, 16 * n_gaussians))
+    live = tpu.live_capacity or (dup - (dup >> 3) if tpu.raster_cull else 0)
     live = (live // 256) * 256
-    return RasterConfig(dup_capacity=dup, antialiasing=antialiasing,
-                        impl=impl, cull=cull, live_capacity=live)
+    return RasterConfig(dup_capacity=dup, antialiasing=pipe.antialiasing,
+                        impl=tpu.raster_impl, cull=tpu.raster_cull,
+                        live_capacity=live)
 
 
 def loss_and_grads(params: GaussianParams, cam: CameraBatch,
                    bg: torch.Tensor, depth_weight: float, *,
                    rcfg: RasterConfig, opt: OptimizationParams,
                    active_sh_degree: int, use_exp: bool):
-    """The loss of one Adam iteration and its gradients.
+    """The loss of one Adam iteration and its gradients; no state changes.
 
     Returns ``(loss, info, depth_l1, grads, g_m2d)``: ``info`` is
     ``scalar_training_loss``'s dict, ``grads`` the gradient of every
@@ -68,18 +100,15 @@ def loss_and_grads(params: GaussianParams, cam: CameraBatch,
             dict(zip(PARAM_GROUPS, grads[:-1])), grads[-1])
 
 
-def train_step(params: GaussianParams, aux: GaussianAux,
-               opt_state: AdamState, cam: CameraBatch, bg: torch.Tensor,
-               step: int, spatial_lr_scale: float, depth_weight: float, *,
-               rcfg: RasterConfig, opt: OptimizationParams,
-               active_sh_degree: int, use_exp: bool, sparse_adam: bool,
-               update_stats: bool):
-    """One Adam iteration over a (usually B=1) camera batch. Updates
+def apply_update(params: GaussianParams, aux: GaussianAux,
+                 opt_state: AdamState, cam: CameraBatch, step: int,
+                 spatial_lr_scale: float, found, *, opt: OptimizationParams,
+                 sparse_adam: bool, update_stats: bool):
+    """The rest of one Adam iteration, given ``found``, the output of
+    ``loss_and_grads``: the densification statistics, then Adam. Updates
     ``params`` and ``opt_state`` in place; returns ``(params, aux,
     opt_state, metrics)`` with the metrics as 0-d tensors (no host sync)."""
-    loss, info, depth_l1, grads, g_m2d = loss_and_grads(
-        params, cam, bg, depth_weight, rcfg=rcfg, opt=opt,
-        active_sh_degree=active_sh_degree, use_exp=use_exp)
+    loss, info, depth_l1, grads, g_m2d = found
     out = info["render"]
     radii = torch.amax(out.radii, dim=0)             # (P,) over batch views
     if update_stats:
@@ -98,3 +127,376 @@ def train_step(params: GaussianParams, aux: GaussianAux,
                "overflow": torch.amax(out.overflow),
                "max_tile_load": torch.amax(out.max_tile_load)}
     return params, aux, opt_state, metrics
+
+
+def train_step(params: GaussianParams, aux: GaussianAux,
+               opt_state: AdamState, cam: CameraBatch, bg: torch.Tensor,
+               step: int, spatial_lr_scale: float, depth_weight: float, *,
+               rcfg: RasterConfig, opt: OptimizationParams,
+               active_sh_degree: int, use_exp: bool, sparse_adam: bool,
+               update_stats: bool):
+    """One Adam iteration over a (usually B=1) camera batch:
+    ``loss_and_grads`` then ``apply_update``. Updates ``params`` and
+    ``opt_state`` in place."""
+    found = loss_and_grads(params, cam, bg, depth_weight, rcfg=rcfg, opt=opt,
+                           active_sh_degree=active_sh_degree, use_exp=use_exp)
+    return apply_update(params, aux, opt_state, cam, step, spatial_lr_scale,
+                        found, opt=opt, sparse_adam=sparse_adam,
+                        update_stats=update_stats)
+
+
+@torch.no_grad()
+def evaluate(params: GaussianParams, aux, cams: CameraBatch, bg, rcfg,
+             active_sh_degree, use_exp) -> dict:
+    """L1 and PSNR of one batched render of ``cams`` (no overflow retry, as
+    in JAX). ``aux`` is unused: the mask is ``params.alive``."""
+    out = batch_render(params, cams, bg, config=rcfg,
+                       active_sh_degree=active_sh_degree,
+                       use_trained_exp=use_exp, alive=params.alive)
+    l1 = torch.mean(torch.abs(out.render - cams.gt_image))
+    return {"l1": float(l1),
+            "psnr": float(torch.mean(psnr(out.render, cams.gt_image)))}
+
+
+def split_noise(gen: torch.Generator, capacity: int, device) -> tuple:
+    """The two (C, 3) standard normal draws of one densification event (the
+    split children's offsets), from the loop's generator."""
+    return tuple(torch.randn((capacity, 3), generator=gen, device=device)
+                 for _ in range(2))
+
+
+def training(args, *, lm_phase_hook=None):
+    """The training loop over ``args`` (``build_parser``'s namespace).
+    Returns ``(scene, params, aux, opt_state)``.
+
+    ``lm_phase_hook(scene, params, aux, opt_state, iteration, all_train,
+    rcfg, bg)`` runs the iterations from ``--jvp_start`` on and returns
+    ``(params, aux, opt_state, info, rcfg)``: ``info["best_val_loss"]``
+    feeds the progress line, and the returned ``rcfg`` (grown by the
+    hook's overflow probe) is kept."""
+    safe_state(getattr(args, "quiet", False))
+    dev = platform_device(getattr(args, "platform", ""))
+    if getattr(args, "detect_anomaly", False):
+        from gslm_tpu_torch.utils.profiling import enable_nan_debugging
+        enable_nan_debugging()
+    model = cfg_mod.extract(args, cfg_mod.ModelParams)
+    opt = cfg_mod.extract(args, cfg_mod.OptimizationParams)
+    pipe = cfg_mod.extract(args, cfg_mod.PipelineParams)
+    tpu = cfg_mod.extract(args, cfg_mod.TpuParams)
+
+    # JAX seeds the global `random` in safe_state, shuffles the cameras
+    # with it in Scene, then the view order: one Random(0) does the same
+    order_rng = random.Random(0)
+    scene = Scene(model.source_path, model.model_path, images=model.images,
+                  depths=model.depths, resolution=model.resolution,
+                  white_background=model.white_background,
+                  eval_split=model.eval, train_test_exp=model.train_test_exp,
+                  sh_degree=model.sh_degree, capacity=tpu.capacity or None,
+                  device=dev, rng=order_rng)
+    cfg_mod.save_cfg_args(model.model_path, args)
+
+    params, aux = scene.params, scene.aux
+    opt_state = init_adam(params)
+    first_iter = 0
+    spatial_lr_scale = scene.cameras_extent
+    if getattr(args, "start_checkpoint", ""):
+        params, aux, opt_state, first_iter, spatial_lr_scale = \
+            load_checkpoint(args.start_checkpoint, device=dev)
+        print(f"Restored checkpoint at iteration {first_iter}")
+
+    train_metas = scene.get_train_cameras()
+    all_train = batch_from_metas(train_metas, device=dev)
+    test_metas = scene.get_test_cameras()
+    all_test = batch_from_metas(
+        test_metas, pad_hw=(all_train.height, all_train.width),
+        device=dev) if test_metas else None
+
+    rcfg = make_raster_config(tpu, pipe, all_train.height, all_train.width,
+                              params.capacity)
+    if not any(m.depth_reliable for m in train_metas):
+        # no usable depth maps: the depth-L1 term is identically zero
+        rcfg = rcfg.replace(depth_grad=False)
+
+    bg_default = torch.ones(3, device=dev) if model.white_background \
+        else torch.zeros(3, device=dev)
+    depth_w_fn = get_expon_lr_func(opt.depth_l1_weight_init,
+                                   opt.depth_l1_weight_final,
+                                   max_steps=opt.iterations)
+    sparse = opt.optimizer_type == "sparse_adam"
+
+    writer = None
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+        writer = SummaryWriter(model.model_path)
+    except Exception:
+        print("Tensorboard not available: not logging progress")
+
+    test_iterations = set(getattr(args, "test_iterations", None)
+                          or [7000, 30000])
+    save_iterations = set(getattr(args, "save_iterations", None)
+                          or [7000, 30000])
+    ckpt_iterations = set(getattr(args, "checkpoint_iterations", None) or [])
+
+    viewer = None
+    if not getattr(args, "disable_viewer", False):
+        try:
+            from gslm_tpu_torch.viewer import ViewerServer
+            viewer = ViewerServer(getattr(args, "ip", "127.0.0.1"),
+                                  getattr(args, "port", 6009))
+        except OSError as e:
+            print(f"Viewer server disabled ({e})")
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    np_rng = np.random.default_rng(0)
+    indices: list[int] = []
+    ema_loss = 0.0
+    t_start = time.time()
+    jvp_start = getattr(args, "jvp_start", opt.iterations + 1)
+
+    iter_timer = IterTimer()
+    profile_dir = getattr(args, "profile_dir", "")
+    profile_from = getattr(args, "profile_from", 50)
+    profile_until = profile_from + getattr(args, "profile_steps", 10)
+    profiler = contextlib.ExitStack()
+    profiling = False
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    try:
+        for iteration in range(first_iter + 1, opt.iterations + 1):
+            if profile_dir:
+                if iteration == profile_from and not profiling:
+                    sync()
+                    profiler.enter_context(trace(profile_dir))
+                    profiling = True
+                elif iteration == profile_until and profiling:
+                    sync()
+                    profiler.close()
+                    profiling = False
+                    print(f"\n[ITER {iteration}] wrote profiler trace to "
+                          f"{profile_dir}")
+            active_sh = min(iteration // 1000, params.sh_degree)
+            if viewer is not None:
+                viewer.poll(params, aux, bg_default, rcfg=rcfg,
+                            active_sh_degree=active_sh,
+                            source_path=model.source_path,
+                            training_done=iteration >= opt.iterations)
+            if lm_phase_hook is not None and iteration >= jvp_start:
+                # LM outer steps; eval/save/checkpoint and the densify /
+                # opacity-reset schedule below still apply
+                # rcfg back: the LM probe may have grown the capacities
+                params, aux, opt_state, lm_info, rcfg = lm_phase_hook(
+                    scene, params, aux, opt_state, iteration, all_train,
+                    rcfg, bg_default)
+                loss_f = float(lm_info["best_val_loss"])
+                ema_loss = 0.4 * loss_f + 0.6 * ema_loss
+                if iteration % 10 == 0:
+                    print(f"Training {iteration}/{opt.iterations}: "
+                          f"ValLoss={ema_loss:.7f}, "
+                          f"P={int(params.alive.sum())}")
+                iter_ms = iter_timer.tick()
+                if writer is not None and lm_info is not None:
+                    writer.add_scalar("train_loss_patches/total_loss",
+                                      float(lm_info["start_loss"]),
+                                      iteration)
+                    writer.add_scalar("lm/best_val_loss", loss_f, iteration)
+                    writer.add_scalar("lm/best_alpha",
+                                      float(lm_info["best_alpha"]), iteration)
+                    writer.add_scalar("iter_time", iter_ms, iteration)
+            else:
+                if getattr(args, "sgd_batch", False):
+                    # a strided multi-view window (train_sgd)
+                    from gslm_tpu_torch.train_sgd import select_window
+                    win = select_window(len(train_metas),
+                                        getattr(args, "num_images", 5),
+                                        np_rng)
+                    cam = all_train.take(win)
+                    # per-view depth gating: zero the unreliable views'
+                    # depth masks instead of gating the window on win[0]
+                    rel = np.array([train_metas[i].depth_reliable
+                                    for i in win], np.float32)
+                    depth_ok = bool(rel.any())
+                    if not rel.all():
+                        cam = cam.replace(depth_mask=cam.depth_mask * torch
+                                          .tensor(rel, device=dev)[:, None,
+                                                                   None, None])
+                else:
+                    if not indices:
+                        indices = list(range(len(train_metas)))
+                        order_rng.shuffle(indices)
+                    idx = indices.pop()
+                    cam = all_train.take(slice(idx, idx + 1))
+                    depth_ok = train_metas[idx].depth_reliable
+
+                if opt.random_background:
+                    bg = torch.rand(3, generator=gen, device=dev)
+                else:
+                    bg = bg_default
+
+                in_densify = iteration < opt.densify_until_iter
+                dw = depth_w_fn(iteration) if depth_ok else 0.0
+
+                # overflow recovery: re-run at doubled capacities; Adam
+                # applies once, on the clean attempt (or, degraded, on the
+                # last), so failed attempts never reach the parameters
+                for attempt in range(3):
+                    found = loss_and_grads(
+                        params, cam, bg, dw, rcfg=rcfg, opt=opt,
+                        active_sh_degree=active_sh,
+                        use_exp=model.train_test_exp)
+                    clean = int(torch.amax(found[1]["render"].overflow)) == 0
+                    if clean or attempt == 2:
+                        params, aux, opt_state, metrics = apply_update(
+                            params, aux, opt_state, cam, iteration,
+                            spatial_lr_scale, found, opt=opt,
+                            sparse_adam=sparse, update_stats=in_densify)
+                    del found
+                    if clean:
+                        break
+                    rcfg = rcfg.grow()
+                    print(f"\n[ITER {iteration}] duplicate-buffer overflow: "
+                          f"retrying at dup_capacity={rcfg.dup_capacity}")
+                else:
+                    print(f"\n[ITER {iteration}] WARNING: overflow persists "
+                          f"after retries (dup_capacity={rcfg.dup_capacity}"
+                          f"); this step used a degraded render")
+
+                loss_f = float(metrics["loss"])
+                ema_loss = 0.4 * loss_f + 0.6 * ema_loss
+                if iteration % 10 == 0:
+                    print(f"Training {iteration}/{opt.iterations}: "
+                          f"Loss={ema_loss:.7f}, "
+                          f"P={int(params.alive.sum())}")
+                iter_ms = iter_timer.tick()
+                if writer is not None:
+                    writer.add_scalar("train_loss_patches/total_loss", loss_f,
+                                      iteration)
+                    writer.add_scalar("train_loss_patches/l1_loss",
+                                      float(metrics["l1"]), iteration)
+                    writer.add_scalar("iter_time", iter_ms, iteration)
+
+            # --- densification schedule (reference train.py:160-174; it
+            # stays active in the LM phase like train_jvp.py:294-341) ---
+            if iteration < opt.densify_until_iter \
+                    and iteration > opt.densify_from_iter \
+                    and iteration % opt.densification_interval == 0:
+                noise = split_noise(gen, params.capacity, dev)
+                size_thr = 20.0 if iteration > opt.opacity_reset_interval \
+                    else 0.0
+                params, aux, opt_state, info = densify_and_prune(
+                    params, aux, opt_state, noise, opt.densify_grad_threshold,
+                    0.005, scene.cameras_extent, size_thr, opt.percent_dense)
+                del noise
+                if int(info["n_dropped"]) > 0:
+                    print(f"\n[ITER {iteration}] capacity full: dropped "
+                          f"{int(info['n_dropped'])} densification requests "
+                          f"(capacity={params.capacity})")
+            if iteration < opt.densify_until_iter and (
+                    iteration % opt.opacity_reset_interval == 0 or (
+                        model.white_background
+                        and iteration == opt.densify_from_iter)):
+                params, opt_state = reset_opacity(params, opt_state)
+
+            if iteration in test_iterations:
+                stats = {"train": evaluate(
+                    params, aux, all_train.take(slice(0, min(5, len(
+                        train_metas)))), bg_default, rcfg, active_sh,
+                    model.train_test_exp)}
+                if all_test is not None:
+                    stats["test"] = evaluate(params, aux, all_test,
+                                             bg_default, rcfg, active_sh,
+                                             model.train_test_exp)
+                print(f"\n[ITER {iteration}] " + "  ".join(
+                    f"{k}: L1 {v['l1']:.4f} PSNR {v['psnr']:.2f}"
+                    for k, v in stats.items()))
+                if writer is not None:
+                    for k, v in stats.items():
+                        writer.add_scalar(f"{k}/loss_viewpoint_psnr",
+                                          v["psnr"], iteration)
+                    _report_extras(writer, params, all_train, bg_default,
+                                   rcfg, active_sh, model.train_test_exp,
+                                   iteration)
+            if iteration in save_iterations:
+                print(f"\n[ITER {iteration}] Saving Gaussians")
+                scene.save(iteration, params)
+            if iteration in ckpt_iterations:
+                save_checkpoint(os.path.join(model.model_path,
+                                             f"chkpnt{iteration}.npz"),
+                                params, aux, opt_state, iteration,
+                                spatial_lr_scale)
+    finally:
+        profiler.close()
+        if viewer is not None:
+            viewer.close()
+
+    print(f"\nTraining complete in {time.time() - t_start:.1f}s")
+    scene.params, scene.aux = params, aux
+    return scene, params, aux, opt_state
+
+
+def _report_extras(writer, params, all_train, bg, rcfg, active_sh, use_exp,
+                   iteration):
+    """The reference's training_report extras (train.py:221-256): the
+    first train views' renders, the opacity histogram, the point count."""
+    try:
+        with torch.no_grad():
+            out = batch_render(params, all_train.take(slice(0, 5)), bg,
+                               config=rcfg, active_sh_degree=active_sh,
+                               use_trained_exp=use_exp, alive=params.alive)
+            for i in range(out.render.shape[0]):
+                writer.add_image(f"renders/view_{i:03d}",
+                                 out.render[i].cpu().numpy(), iteration)
+            writer.add_histogram(
+                "scene/opacity_histogram",
+                torch.sigmoid(params.opacity[params.alive, 0]).cpu().numpy(),
+                iteration)
+            writer.add_scalar("total_points", int(params.alive.sum()),
+                              iteration)
+    except Exception as e:     # TB extras must never kill a run
+        print(f"(tensorboard extras skipped: {e})")
+
+
+def build_parser() -> ArgumentParser:
+    parser = ArgumentParser(description="3DGS training on the card")
+    cfg_mod.add_all_args(parser)
+    parser.add_argument("--test_iterations", nargs="+", type=int,
+                        default=[7000, 30000])
+    parser.add_argument("--save_iterations", nargs="+", type=int,
+                        default=[7000, 30000])
+    parser.add_argument("--checkpoint_iterations", nargs="+", type=int,
+                        default=[])
+    parser.add_argument("--start_checkpoint", type=str, default="")
+    parser.add_argument("--quiet", action="store_true")
+    parser.add_argument("--ip", type=str, default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=6009)
+    parser.add_argument("--disable_viewer", action="store_true")
+    parser.add_argument("--detect_anomaly", action="store_true",
+                        help="autograd anomaly mode: raise at the first "
+                             "backward op that produces a NaN")
+    parser.add_argument("--platform", type=str, default="",
+                        help="'' runs on the CUDA card (raises without "
+                             "one), 'cpu' on the CPU")
+    parser.add_argument("--profile_dir", type=str, default="",
+                        help="write a torch.profiler trace of iterations "
+                             "profile_from..profile_from+profile_steps")
+    parser.add_argument("--profile_from", type=int, default=50)
+    parser.add_argument("--profile_steps", type=int, default=10)
+    return parser
+
+
+def main(argv=None):
+    """The command line (``argv``, default ``sys.argv[1:]``). Returns
+    ``training``'s ``(scene, params, aux, opt_state)``."""
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    args.save_iterations.append(args.iterations)
+    print("Optimizing " + args.model_path)
+    out = training(args)
+    print("\nTraining complete.")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -8,8 +8,11 @@ tensor), then a backtracking line search of 7 step lengths on a fixed set
 of validation views, each scored by a chunked forward render. ``lm_phase``
 is its host driver: it picks the window and the validation views, probes
 the record capacities before and after the step and grows them on
-overflow. The ``training()`` loop and its CLI (``main``) come with the
-trainer slice; multi-device (``mesh``) with the multi-device slice.
+overflow. ``main`` is the two-phase command line: ``train.training`` runs
+Adam until ``--jvp_start``, then ``lm_phase`` through its LM hook.
+Multi-device (``mesh``) comes with the multi-device slice.
+
+Usage: python -m gslm_tpu_torch.train_lm -s <dataset> -m <output> [flags]
 """
 
 from __future__ import annotations
@@ -302,3 +305,35 @@ def lm_phase(scene, params: GaussianParams, aux, all_train: CameraBatch,
               f"{float(info['best_val_loss']):.6f} "
               f"(alpha {float(info['best_alpha']):.3f})")
     return params, info, rcfg
+
+
+def main(argv=None):
+    """The two-phase command line (``argv``, default ``sys.argv[1:]``).
+    Returns ``training``'s ``(scene, params, aux, opt_state)``."""
+    from gslm_tpu_torch.train import build_parser, training
+
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    args.save_iterations.append(args.iterations)
+
+    lm = cfg_mod.extract(args, cfg_mod.LMParams)
+    model = cfg_mod.extract(args, cfg_mod.ModelParams)
+    opt = cfg_mod.extract(args, cfg_mod.OptimizationParams)
+    rng = np.random.default_rng(0)
+
+    def hook(scene, params, aux, opt_state, iteration, all_train, rcfg, bg):
+        active_sh = min(iteration // 1000, params.sh_degree)
+        params, info, rcfg = lm_phase(
+            scene, params, None, all_train, rcfg, bg, lm, iteration, rng,
+            model.train_test_exp, opt.lambda_dssim, active_sh,
+            verbose=not getattr(args, "quiet", False))
+        return params, aux, opt_state, info, rcfg
+
+    print("Optimizing " + args.model_path + f" (LM from {lm.jvp_start})")
+    out = training(args, lm_phase_hook=hook)
+    print("\nTraining complete.")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,6 @@
-"""General numeric helpers (the part of gslm_tpu/utils/general.py the
-render, Adam and density-control paths need): the opacity activation's
-inverse, quaternion algebra and the learning-rate schedules."""
+"""General helpers (gslm_tpu/utils/general.py): the opacity activation's
+inverse, quaternion algebra, the learning-rate schedules and
+``safe_state``, the trainer's stdout and host-seed set-up."""
 
 from __future__ import annotations
 
@@ -12,6 +12,50 @@ import torch
 
 def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
     return torch.log(x / (1 - x))
+
+
+class _TimestampedStdout:
+    """``safe_state``'s stdout: writes to ``inner``, each line that ends in
+    a newline with a `` [dd/mm hh:mm:ss]`` suffix, or nothing if
+    ``silent``."""
+
+    def __init__(self, inner, silent: bool):
+        self.inner, self.silent = inner, silent
+
+    def write(self, x):
+        if self.silent:
+            return
+        if x.endswith("\n"):
+            from datetime import datetime
+            stamp = datetime.now().strftime("%d/%m %H:%M:%S")
+            x = x[:-1] + f" [{stamp}]\n"
+        self.inner.write(x)
+
+    def flush(self):
+        self.inner.flush()
+
+    def isatty(self):
+        return self.inner.isatty()
+
+
+def safe_state(silent: bool = False, seed: int = 0):
+    """Timestamp or silence stdout and seed the host RNGs (reference
+    utils/general_utils.py:123-144): every line that ends in a newline gets
+    a `` [dd/mm hh:mm:ss]`` suffix, ``silent`` drops all output, and
+    ``random`` and ``np.random`` are seeded with ``seed``. The wrapper stays
+    on ``sys.stdout`` until the caller puts its own stream back; a repeated
+    call wraps the stream under the wrapper instead of stacking. The
+    trainer's own draws come from explicit generators, so torch's global
+    seed is left alone."""
+    import random as _random
+    import sys
+
+    inner = sys.stdout
+    if isinstance(inner, _TimestampedStdout):
+        inner = inner.inner
+    sys.stdout = _TimestampedStdout(inner, silent)
+    _random.seed(seed)
+    np.random.seed(seed)
 
 
 def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

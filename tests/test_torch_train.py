@@ -38,7 +38,8 @@ from gslm_tpu.utils.general import expon_lr as j_expon_lr
 from gslm_tpu.utils.general import get_expon_lr_func as j_get_expon_lr_func
 from gslm_tpu.utils.synthetic import make_camera as j_make_camera
 from gslm_tpu.utils.synthetic import random_gaussians as j_random_gaussians
-from gslm_tpu_torch.config import OptimizationParams
+from gslm_tpu_torch.config import (OptimizationParams, PipelineParams,
+                                   TpuParams)
 from gslm_tpu_torch.densify import add_densification_stats
 from gslm_tpu_torch.models.cameras import batch_from_metas
 from gslm_tpu_torch.models.gaussians import (PARAM_GROUPS, GaussianAux,
@@ -170,7 +171,8 @@ def test_make_raster_config_matches_jax():
     for n in (100, 5000, 131_072):
         want = j_make_raster_config(j_config.TpuParams(),
                                     j_config.PipelineParams(), 1080, 1920, n)
-        got = make_raster_config(n)
+        got = make_raster_config(TpuParams(), PipelineParams(), 1080, 1920,
+                                 n)
         for f in ("dup_capacity", "live_capacity", "cull", "antialiasing",
                   "impl"):
             assert getattr(got, f) == getattr(want, f), (n, f)
