@@ -160,7 +160,45 @@ failed phase exits non-zero:
    saves, the frame round trip, ``render_sets`` per view, ``metrics`` per
    pair, the profiled iterations' device-busy share, the LM run's peak
    memory and the phase's wall time.
-11. a ``{"kernels": [...]}`` line, then the last line
+11. depth-supervised training (cell scene-depth-131k-1080p) on phase 9's
+   scene: each view's observations of the points (those whose inverse
+   depth is within 1 % of the render's normalised inverse depth at the
+   four pixels a bilinear sample of them reads: at 5 % the blend with
+   what lies behind compresses the sampled depths and the fitted scale
+   of the four axis-aligned views comes out 1.28/a) written into
+   images.bin,
+   and a ``depths/`` folder of 16-bit 960x540 inverse-depth PNGs, each a
+   per-view affine a·d + b of the port's render (d its inverse depth over
+   its alpha), one train view's a 10x the others'. Then
+   ``tools.make_depth_scale.main``, ``train.main -d depths -r 1 --eval
+   --capacity 262144`` for 100 iterations (test and checkpoint at 100)
+   and ``train_sgd.main -d depths`` for 3 windows of 5 views from that
+   checkpoint, the odd view inside the first. Checks: the fitted scale·a
+   within 10 % of 1 for every reliable view and the odd view's scale
+   under 0.2x the median; ``Scene`` with depths marks the odd view
+   unreliable with a zero mask and loads every other map at 1080p; every
+   Adam and SGD attempt launches A once, B twice and C once, every C
+   with ``depth_grad`` True; the odd view's iterations have depth weight
+   0 and depth L1 0, its mask is 0 inside its SGD window and the others'
+   are not; depth L1 falls over the loop (median of the first and last
+   10 reliable iterations); kernel C against its plain version
+   (``c_vs_plain``, ``depth_grad`` True) on a loop iteration's inputs
+   whose invdepth cotangent is nonzero. Prints the 16-bit PNG write and
+   read, ``make_depth_scale``, ``Scene`` load with and without depths,
+   the loop's iteration against phase 10's and kernel C with and without
+   ``depth_grad`` in turns.
+12. LPIPS and the parity matrix: a seeded random-weight LPIPS file (the
+   real file's shapes) named by ``GSLM_LPIPS_WEIGHTS``;
+   ``render_sets.main --skip_train`` and ``metrics.main`` on phase 11's
+   model (LPIPS not null, B once per pair); each pair's LPIPS on the card
+   within 1e-4 relative of the same pair on CPU tensors (timed, peak
+   memory); the test view rendered at the probe's capacities, written
+   with ``render_sets.save_png`` and scored by ``metrics.evaluate_dir``
+   (LPIPS on) within 0.05 dB of ``train.evaluate``; then
+   ``utils.paritycheck.run_parity_matrix()`` at full size (2,048
+   Gaussians, 160x192: the kernels against their plain versions on the
+   CPU), its table printed, every variant ok.
+13. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of gslm_tpu. It finds the package beside itself
@@ -1017,7 +1055,11 @@ def run(dev, n_gauss: int, height: int, width: int) -> None:
     kernels.insert(3, bucket_phase(dev, M1_N, height, width, tag, kernels))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_scene_") as root:
         src = scene_phase(dev, n_gauss, height, width, tag, kernels, root)
-        cli_phase(dev, n_gauss, height, width, tag, kernels, src, root)
+        adam_ms = cli_phase(dev, n_gauss, height, width, tag, kernels, src,
+                            root)
+        model = depth_phase(dev, n_gauss, height, width, tag, kernels, src,
+                            root, adam_ms)
+        lpips_parity_phase(dev, tag, kernels, model, root)
     for entry, k in zip(kernels, "ABCDE"):
         if k in attrs:
             entry["attrs"] = attrs[k]
@@ -2757,12 +2799,14 @@ def _delta(before: dict, after: dict) -> dict:
 
 class LoopProbe:
     """Instruments one in-process run of ``train.training``: per Adam
-    attempt its kernel launches and host time, per iteration the loop's
-    own ``IterTimer`` reading and ``opt_state.step``, each density event,
-    evaluate and save timed, and chosen iterations' kernel inputs captured
-    (``capture``: iteration → what to capture)."""
+    attempt its kernel launches and host time (and with ``watch_depth``
+    its depth weight, depth L1 and views' depth masks), per iteration the
+    loop's own ``IterTimer`` reading and ``opt_state.step``, each density
+    event, evaluate and save timed, and chosen iterations' kernel inputs
+    captured (``capture``: iteration → what to capture)."""
 
-    def __init__(self, first_iter: int, capture=None):
+    def __init__(self, first_iter: int, capture=None,
+                 watch_depth: bool = False):
         import torch
 
         from gslm_tpu_torch import train as T
@@ -2770,6 +2814,9 @@ class LoopProbe:
         self.it = first_iter + 1        # the iteration in progress
         self.last = first_iter          # the last one the loop timed
         self.capture = capture or {}
+        # per attempt with ``watch_depth``: (iteration, depth weight, depth
+        # L1, the views' exposure indices, each view's depth-mask sum)
+        self.watch_depth, self.depth = watch_depth, []
         self.attempts, self.ticks, self.steps = [], {}, {}
         self.events, self.evals, self.saves, self.captured = [], [], [], {}
         self.first_call = None
@@ -2797,6 +2844,12 @@ class LoopProbe:
             probe.torch.cuda.synchronize()
             probe.attempts.append((probe.it, _delta(before, launches()),
                                    (time.perf_counter() - t0) * 1e3))
+            if probe.watch_depth:
+                cam = a[1]
+                probe.depth.append((
+                    probe.it, float(a[3]), float(out[2]),
+                    cam.exposure_idx.tolist(),
+                    cam.depth_mask.flatten(1).sum(1).tolist()))
             return out
 
         def apply_update(*a, **k):
@@ -2958,12 +3011,12 @@ def chunk_caps(params, metas, dev, batch: int = 4):
 
 
 def cli_phase(dev, n_gauss: int, height: int, width: int, tag: str,
-              kernels: list[dict], src: str, root: str) -> None:
+              kernels: list[dict], src: str, root: str) -> float:
     """Phase 10 (cell train-cli-131k-1080p): ``train.main``,
     ``train_lm.main``, ``train_sgd.main``, ``render_sets.main`` and
     ``metrics.main`` in-process on phase 9's COLMAP scene ``src``, output
     under ``root``. Adds the phase's launches to the kernel entries A-E in
-    ``kernels``."""
+    ``kernels``; returns the loop's Adam iteration median in ms."""
     import math
     import threading
 
@@ -3448,7 +3501,543 @@ def cli_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     kernels[2]["max_abs_err_train_cli"] = max(errs["adam"]["C"],
                                               errs["lm_C"])
     kernels[4]["max_abs_err_train_cli"] = errs["lm_E"]
+    return statistics.median(adam_ticks)
 
+
+DEPTH_MAP = (540, 960)         # the monocular maps' (height, width)
+DEPTH_ITERS = 100              # train.main -d: Adam iterations
+DEPTH_CHECKED = (50, 51, 52)   # C held to plain on the first reliable one
+DEPTH_SGD = (3, 5)             # train_sgd.main -d: windows, --num_images
+DEPTH_SEEN_REL = 0.01          # a point is seen where the surface is
+DEPTH_SCALE_TOL = 0.10         # fitted scale·a within 10 % of 1
+DEPTH_ODD = 10.0               # the unreliable view's a, times the others'
+LPIPS_REL = 1e-4               # LPIPS on the card against the CPU
+
+
+def depth_maps(params, metas, dev, caps):
+    """Each view's (``metas``) normalised inverse depth (the kernel-A
+    render's inverse depth over its alpha, 0 where the alpha is at most
+    0.5) and its alpha, as float64 numpy: two composites of the same
+    records, over black and over white, give T."""
+    import torch
+
+    from gslm_tpu_torch.models.cameras import camera_from_meta
+    from gslm_tpu_torch.ops.projection import preprocess
+    from gslm_tpu_torch.ops.rasterize_cuda import rasterize_cuda
+    out = []
+    for m in metas:
+        h, w = m.height, m.width
+        cam = camera_from_meta(m, device=dev)
+        with torch.no_grad():
+            splats = preprocess(params, cam, active_sh_degree=3,
+                                alive=params.alive)
+            black = rasterize_cuda(splats, h, w, torch.zeros(3, device=dev),
+                                   caps)
+            white = rasterize_cuda(splats, h, w, torch.ones(3, device=dev),
+                                   caps)
+        check(int(black["overflow"]) == 0, "a depth-map render overflows")
+        alpha = (1.0 - (white["render"][0] - black["render"][0])).double()
+        inv = black["invdepth"][0].double()
+        norm = torch.where(alpha > 0.5, inv / alpha.clamp(min=1e-6), 0.0)
+        out.append((norm.cpu().numpy(), alpha.cpu().numpy()))
+    return out
+
+
+def observations(xyz, meta, norm, alpha):
+    """The points a view sees: those in front whose inverse depth is within
+    ``DEPTH_SEEN_REL`` of the surface's (the normalised inverse depth of
+    the small map) at all four pixels ``make_depth_scale``'s bilinear
+    sample of them reads, so that the sample is the point's own depth:
+    (xys at the view's resolution in COLMAP's convention, point ids)."""
+    from gslm_tpu_torch.utils.graphics import fov2focal
+    cam = xyz @ meta.R + meta.T               # w2c = meta.R.T
+    z = cam[:, 2]
+    fx = fov2focal(meta.fovx, meta.width)
+    fy = fov2focal(meta.fovy, meta.height)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        x = fx * cam[:, 0] / z + meta.width / 2
+        y = fy * cam[:, 1] / z + meta.height / 2
+    h, w = norm.shape
+    # make_depth_scale samples the map at xys·s, integers at pixel centres
+    sx, sy = x * h / meta.height, y * h / meta.height
+    inside = ((z > 0.2) & (sx >= 0) & (sx < w - 1) & (sy >= 0)
+              & (sy < h - 1))
+    ids = np.nonzero(inside)[0]
+    x0 = np.floor(sx[ids]).astype(np.int64)
+    y0 = np.floor(sy[ids]).astype(np.int64)
+    inv = 1.0 / z[ids]
+    seen = np.ones(len(ids), bool)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            n, a = norm[y0 + dy, x0 + dx], alpha[y0 + dy, x0 + dx]
+            seen &= (a > 0.5) & (np.abs(n - inv) <= DEPTH_SEEN_REL * inv)
+    ids = ids[seen]
+    return np.stack([x[ids], y[ids]], 1), ids.astype(np.int64)
+
+
+@contextlib.contextmanager
+def bwd_flags():
+    """Collects the ``depth_grad`` flag of every ``Composite.backward``
+    (kernel C's, or D's, launch) inside the block."""
+    from gslm_tpu_torch.ops import rasterize_cuda as rc
+    real = rc.Composite.backward
+    got = []
+
+    def backward(ctx, gtiles, gwalked):
+        got.append(bool(ctx.geometry[2]))
+        return real(ctx, gtiles, gwalked)
+
+    rc.Composite.backward = staticmethod(backward)
+    try:
+        yield got
+    finally:
+        rc.Composite.backward = staticmethod(real)
+
+
+def depth_phase(dev, n_gauss: int, height: int, width: int, tag: str,
+                kernels: list[dict], src: str, root: str,
+                cli_adam_ms: float) -> str:
+    """Phase 11 (cell scene-depth-131k-1080p): depth-supervised training on
+    phase 9's scene ``src``. Writes each view's observations of the points
+    and a folder of 16-bit inverse-depth maps (a per-view affine of the
+    port's render, one view's scale 10x), runs ``make_depth_scale``, then
+    ``train.main -d depths`` and ``train_sgd.main -d depths`` in-process.
+    Adds the phase's launches to ``kernels``; returns the training run's
+    model directory (phase 12 scores it)."""
+    import math
+    import random
+
+    import torch
+
+    from gslm_tpu_torch import train as T
+    from gslm_tpu_torch import train_sgd as TS
+    from gslm_tpu_torch.data import colmap
+    from gslm_tpu_torch.data.png import read_png, write_png
+    from gslm_tpu_torch.data.readers import load_scene_info
+    from gslm_tpu_torch.models.cameras import batch_from_metas
+    from gslm_tpu_torch.models.scene import Scene
+    from gslm_tpu_torch.ops import rasterize_cuda as rc
+    from gslm_tpu_torch.renderer import overflow_probe
+    from gslm_tpu_torch.tools import make_depth_scale as MDS
+    from gslm_tpu_torch.train_sgd import select_window
+    from gslm_tpu_torch.utils.synthetic import make_camera, random_gaussians
+
+    t_phase = time.perf_counter()
+    plat = [] if dev.type == "cuda" else ["--platform", dev.type]
+    sparse = os.path.join(src, "sparse", "0")
+    depths = os.path.join(src, "depths")
+    os.makedirs(depths)
+    out = os.path.join(root, "depth")
+    out_sgd = os.path.join(root, "depth_sgd")
+    adam = {"A": 1, "B": 2, "C": 1, "D": 0, "E": 0}
+
+    # the view that comes out unreliable: one the SGD windows take, in the
+    # train order the loop's Scene makes (random.Random(0) over the
+    # readers' order) and the windows' own draws (default_rng(0))
+    info = load_scene_info(src, eval_split=True)
+    names = [c.image_name for c in info.train_cameras]
+    random.Random(0).shuffle(names)
+    wrng = np.random.default_rng(0)
+    windows = [select_window(len(names), DEPTH_SGD[1], wrng)
+               for _ in range(DEPTH_SGD[0])]
+    odd = names[windows[0][1]]
+
+    # ---- 1. observations and 16-bit inverse-depth maps ------------------
+    t0 = time.perf_counter()
+    scene_params = random_gaussians(
+        np.random.default_rng(0), n=n_gauss, capacity=n_gauss,
+        sh_degree=3, num_images=1, spread=1.5, scale_range=(-5.5, -3.5),
+        device=dev)
+    xyz = scene_params.xyz.detach().cpu().numpy().astype(np.float64)
+    metas = [make_camera(height=height, width=width,
+                         angle=2 * math.pi * i / SCENE_VIEWS,
+                         exposure_idx=i) for i in range(SCENE_VIEWS)]
+    small = [make_camera(height=DEPTH_MAP[0], width=DEPTH_MAP[1],
+                         angle=2 * math.pi * i / SCENE_VIEWS)
+             for i in range(SCENE_VIEWS)]
+    caps = caps_from_counts(*(int(v.max()) for v in overflow_probe(
+        scene_params, batch_from_metas(small, device=dev),
+        config=T.RasterConfig(cull=True), active_sh_degree=3,
+        per_view=True).values()))
+    maps = depth_maps(scene_params, small, dev, caps)
+    del scene_params
+    images = colmap.read_images_binary(os.path.join(sparse, "images.bin"))
+    affine, n_obs, png_w, png_r = {}, [], [], []
+    for (iid, im), m, (norm, alpha) in zip(sorted(images.items()), metas,
+                                           maps):
+        xys, ids = observations(xyz, m, norm, alpha)
+        images[iid] = colmap.ColmapImage(im.id, im.qvec, im.tvec,
+                                         im.camera_id, im.name, xys, ids)
+        n_obs.append(len(ids))
+        i = m.exposure_idx
+        a = (0.1 + 0.01 * i) * (DEPTH_ODD if im.name == odd else 1.0)
+        b = 0.02 + 0.004 * i
+        affine[im.name] = a
+        mono = np.where(alpha > 0.5, a * norm + b, b)
+        u16 = np.clip(np.round(mono * 2 ** 16), 0, 2 ** 16 - 1).astype(
+            np.uint16)
+        path = os.path.join(depths, os.path.splitext(im.name)[0] + ".png")
+        t1 = time.perf_counter()
+        write_png(path, u16)
+        png_w.append((time.perf_counter() - t1) * 1e3)
+        t1 = time.perf_counter()
+        back = read_png(path)
+        png_r.append((time.perf_counter() - t1) * 1e3)
+        check(np.array_equal(back[..., 0], u16), f"{path} not read back "
+              f"exactly")
+    colmap.write_images_binary(images, os.path.join(sparse, "images.bin"))
+    write_s = time.perf_counter() - t0
+    check(min(n_obs) > 100, f"observations per view {n_obs}")
+
+    # ---- 2. make_depth_scale ---------------------------------------------
+    t0 = time.perf_counter()
+    with entry_point():
+        MDS.main(["--base_dir", src, "--depths_dir", depths])
+    mds_s = time.perf_counter() - t0
+    with open(os.path.join(sparse, "depth_params.json")) as f:
+        fitted = json.load(f)
+    check(len(fitted) == SCENE_VIEWS, f"{len(fitted)} depth params")
+    med = float(np.median([v["scale"] for v in fitted.values()]))
+    fit = {n: fitted[os.path.splitext(n)[0]]["scale"] * a
+           for n, a in affine.items()}
+    print(f"{tag} depth inputs: {SCENE_VIEWS} maps {DEPTH_MAP[1]}x"
+          f"{DEPTH_MAP[0]} 16-bit (write {statistics.median(png_w):.1f} ms, "
+          f"read {statistics.median(png_r):.1f} ms, median of "
+          f"{len(png_w)}), observations per view {n_obs}, written in "
+          f"{write_s:.2f} s; make_depth_scale {mds_s:.3f} s; fitted scale·a "
+          f"per view {[round(v, 4) for v in fit.values()]}; the odd view "
+          f"{odd}: scale {fitted[os.path.splitext(odd)[0]]['scale']:.4f} "
+          f"vs median {med:.4f}", flush=True)
+    bad = {n: v for n, v in fit.items()
+           if n != odd and abs(v - 1) > DEPTH_SCALE_TOL}
+    check(not bad, f"fitted scale·a off 1 by more than {DEPTH_SCALE_TOL}: "
+          f"{bad}")
+    check(fitted[os.path.splitext(odd)[0]]["scale"] < 0.2 * med,
+          f"the odd view {odd}'s scale is not under 0.2 x the median")
+
+    # ---- 3. Scene load with and without the maps, in turns ---------------
+    load_s = {"without": [], "with": []}
+    for turn in ("without", "with"):
+        t0 = time.perf_counter()
+        sc = Scene(src, os.path.join(root, f"depth_load_{turn}"),
+                   depths="depths" if turn == "with" else "", resolution=1,
+                   eval_split=True, shuffle=False, capacity=2 * n_gauss,
+                   device=dev)
+        torch.cuda.synchronize()
+        load_s[turn].append(time.perf_counter() - t0)
+        if turn == "with":
+            cams = {c.image_name: c for c in sc.get_train_cameras()}
+    check(not cams[odd].depth_reliable
+          and float(cams[odd].depth_mask.sum()) == 0,
+          f"the odd view {odd} is not unreliable with a zero mask")
+    check(all(c.depth_reliable and c.invdepthmap.shape == (1, height, width)
+              for n, c in cams.items() if n != odd),
+          "a view other than the odd one is unreliable")
+    del sc, cams
+
+    # ---- 4. train.main -d depths -----------------------------------------
+    argv = ["-s", src, "-m", out, "-d", "depths", "-r", "1", "--eval",
+            "--capacity", str(2 * n_gauss), "--iterations", str(DEPTH_ITERS),
+            "--test_iterations", str(DEPTH_ITERS), "--save_iterations",
+            str(DEPTH_ITERS), "--checkpoint_iterations", str(DEPTH_ITERS),
+            "--disable_viewer", *plat]
+    zero_launches()
+    t0 = time.perf_counter()
+    with entry_point() as tee, bwd_flags() as flags, LoopProbe(
+            0, {it: True for it in DEPTH_CHECKED}, watch_depth=True) as lp:
+        T.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    loop_launches = launches()
+    text = tee.text()
+    per_it = lp.per_iteration()
+    n_att = len(lp.attempts)
+    want = {k: n_att * v for k, v in adam.items()}
+    extras = 0 if "Tensorboard not available" in text else 1
+    want["A"] += len(lp.evals) + extras
+    check(loop_launches == want, f"train.main -d launches {loop_launches}, "
+          f"expected {want}")
+    check(len(flags) == n_att == loop_launches["C"] and all(flags),
+          f"kernel C's depth_grad over {n_att} attempts: {len(flags)} "
+          f"backward(s), {sum(flags)} with depth_grad")
+    check(all(lp.steps[it] == it for it in range(1, DEPTH_ITERS + 1)),
+          "opt_state.step differs from the iteration count")
+    # the exposure indices follow the train order, ``names``
+    rows = [(it, dw, d, [names[v] for v in views], m)
+            for it, dw, d, views, m in lp.depth]
+    odd_rows = [r for r in rows if r[3] == [odd]]
+    check(odd_rows and all(dw == 0 and d == 0 and m == [0]
+                           for _, dw, d, _, m in odd_rows),
+          f"the odd view's iterations carry a depth term: {odd_rows[:3]}")
+    rel = [(it, d) for it, dw, d, v, _ in rows if v != [odd] and dw > 0]
+    first = statistics.median(d for _, d in rel[:10])
+    last = statistics.median(d for _, d in rel[-10:])
+    check(last < first, f"depth_l1 did not fall: {first} → {last}")
+    # kernel C on the first checked iteration with an invdepth cotangent
+    c_err, c_ms = None, {}
+    for it in DEPTH_CHECKED:
+        c_args, _ = lp.captured.pop(it)
+        if c_err is None and float(c_args[5][:, 3].abs().max()) > 0:
+            check(c_args[7] is True, "a captured backward ran without "
+                  "depth_grad")
+            c_err = c_vs_plain(f"depth loop iteration {it}, invdepth "
+                               f"cotangent max "
+                               f"{float(c_args[5][:, 3].abs().max()):.3g}",
+                               *c_args)
+            for turn in (True, False, False, True):
+                c_ms.setdefault(turn, []).append(cuda_ms(
+                    lambda: rc.composite_tiles_bwd(*c_args[:7], turn), 5))
+        del c_args
+    check(c_err is not None, f"no checked iteration {DEPTH_CHECKED} had an "
+          f"invdepth cotangent")
+    plain_its = [it for it in range(2, DEPTH_ITERS)
+                 if it not in DEPTH_CHECKED]
+    loop_ms = statistics.median(lp.ticks[it] for it in plain_its)
+    psnr = re.findall(r"\[ITER %d\] train: L1 [\d.]+ PSNR ([\d.]+)  test: "
+                      r"L1 [\d.]+ PSNR ([\d.]+)" % DEPTH_ITERS, text)
+    check(len(psnr) == 1, "the test iteration's PSNR line is missing")
+    print(f"{tag} train.main -d depths: {DEPTH_ITERS} iterations in "
+          f"{train_s:.1f} s; iteration 1: {len(per_it[1])} attempts; kernel "
+          f"C launched {loop_launches['C']} times, every one with depth_grad "
+          f"True; depth_l1 (reliable views, median of 10) {first:.5f} → "
+          f"{last:.5f}; the odd view {len(odd_rows)} iterations with weight "
+          f"0 and depth_l1 0; PSNR at {DEPTH_ITERS} train / test {psnr[0]}",
+          flush=True)
+    totals = dict(loop_launches)
+
+    # ---- 5. train_sgd.main -d depths: the odd view inside a window -------
+    ck = os.path.join(out, f"chkpnt{DEPTH_ITERS}.npz")
+    sgd_argv = ["-s", src, "-m", out_sgd, "-d", "depths", "-r", "1",
+                "--eval", "--capacity", str(2 * n_gauss),
+                "--start_checkpoint", ck, "--iterations",
+                str(DEPTH_ITERS + DEPTH_SGD[0]), "--num_images",
+                str(DEPTH_SGD[1]), "--disable_viewer", *plat]
+    zero_launches()
+    with entry_point(), bwd_flags() as sflags, LoopProbe(
+            DEPTH_ITERS, watch_depth=True) as sp:
+        TS.main(sgd_argv)
+    torch.cuda.synchronize()
+    sgd_total = launches()
+    check(sgd_total == {k: len(sp.attempts) * v for k, v in adam.items()},
+          f"train_sgd.main -d launches {sgd_total}")
+    check(all(sflags) and len(sflags) == len(sp.attempts),
+          "an SGD attempt's kernel C ran without depth_grad")
+    sgd_rows = [([names[v] for v in views], dw, d, m)
+                for _, dw, d, views, m in sp.depth]
+    check(sgd_rows[0][0] == [names[v] for v in windows[0]],
+          "the first SGD window is not the one drawn ahead")
+    with_odd = [r for r in sgd_rows if odd in r[0]]
+    check(with_odd and all(
+        m[v.index(odd)] == 0 and all(x > 0 for n, x in zip(v, m) if n != odd)
+        and dw > 0 and d > 0 for v, dw, d, m in with_odd),
+        f"the odd view's depth mask in its window: {with_odd[:1]}")
+    for k in totals:
+        totals[k] += sgd_total[k]
+    print(f"{tag} train_sgd.main -d depths: {DEPTH_SGD[0]} windows of "
+          f"{DEPTH_SGD[1]}, {len(sp.attempts)} attempts, C with depth_grad "
+          f"each; the odd view in {len(with_odd)} window attempt(s), its "
+          f"depth mask 0 there (the others' sums {with_odd[0][3]}), depth_l1 "
+          f"{[round(d, 5) for _, _, d, _ in sgd_rows]}", flush=True)
+
+    phase_s = time.perf_counter() - t_phase
+    c_true, c_false = (statistics.median(c_ms[k]) for k in (True, False))
+    print(f"{tag} scene-depth timings: 16-bit {DEPTH_MAP[1]}x{DEPTH_MAP[0]} "
+          f"PNG write {statistics.median(png_w):.2f} ms, read "
+          f"{statistics.median(png_r):.2f} ms; make_depth_scale "
+          f"{mds_s:.3f} s; Scene load with depths "
+          f"{statistics.median(load_s['with']):.3f} s vs without "
+          f"{statistics.median(load_s['without']):.3f} s; the loop's Adam iteration {loop_ms:.3f} ms median of "
+          f"{len(plain_its)} vs phase 10's {cli_adam_ms:.3f} ms on the same "
+          f"scene; kernel C on iteration's inputs (CUDA events, in turns, "
+          f"median of 2 x 5) depth_grad {c_true:.4f} ms, without "
+          f"{c_false:.4f} ms; phase wall {phase_s:.1f} s", flush=True)
+    for entry, key in zip(kernels, "ABCDE"):
+        entry["launches_by_path"]["scene_depth"] = totals[key]
+        entry["launches"] += totals[key]
+    kernels[2]["max_abs_err_scene_depth"] = c_err
+    kernels[2]["depth_grad_launches"] = loop_launches["C"] + sgd_total["C"]
+    kernels[2]["ms_depth_grad"] = c_true
+    kernels[2]["ms_no_depth_grad"] = c_false
+    return out
+
+
+def write_lpips_weights(path: str, seed: int = 0) -> str:
+    """An LPIPS npz with the real file's shapes and seeded random weights:
+    N(0, 0.05) convolutions, zero biases, |N(0, 1)| heads."""
+    from gslm_tpu_torch.eval import lpips
+    rng = np.random.default_rng(seed)
+    payload, cin, taps, ci = {}, 3, [], 0
+    for c in lpips.VGG16_CFG:
+        if c == "M":
+            continue
+        payload[f"conv{ci}_W"] = rng.normal(0, 0.05, (3, 3, cin, c)).astype(
+            np.float32)
+        payload[f"conv{ci}_b"] = np.zeros(c, np.float32)
+        if ci in lpips.TAP_AFTER_CONV:
+            taps.append(c)
+        cin, ci = c, ci + 1
+    for j, c in enumerate(taps):
+        payload[f"lin{j}_W"] = np.abs(rng.normal(0, 1, c)).astype(np.float32)
+    np.savez(path, **payload)
+    return path
+
+
+def lpips_pairs(label: str, method_dir: str, dev) -> list:
+    """LPIPS of every pair of ``method_dir`` on the card against the same
+    pair on CPU tensors (within ``LPIPS_REL``), the card's call timed
+    (CUDA events, median of 3) and its peak memory; printed. Returns
+    [(name, card value, cpu value, ms, peak bytes)]."""
+    import torch
+
+    from gslm_tpu_torch.eval import lpips
+    from gslm_tpu_torch.eval import metrics as M
+    names, renders, gts = M.read_images(os.path.join(method_dir, "renders"),
+                                        os.path.join(method_dir, "gt"))
+    out = []
+    for name, r, g in zip(names, renders, gts):
+        r, g = torch.tensor(r)[None], torch.tensor(g)[None]
+        rc, gc = r.to(dev), g.to(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with torch.no_grad():
+            card = float(lpips.lpips(rc, gc)[0])
+            ms = cuda_ms(lambda: lpips.lpips(rc, gc), 3)
+            peak = torch.cuda.max_memory_allocated(dev)
+            cpu = float(lpips.lpips(r, g)[0])
+        out.append((name, card, cpu, ms, peak))
+        check(abs(card - cpu) <= LPIPS_REL * abs(cpu), f"LPIPS of {label} "
+              f"{name}: card {card} vs CPU {cpu}")
+    print(f"LPIPS card vs CPU ({label}, {renders[0].shape[2]}x"
+          f"{renders[0].shape[1]}): "
+          + "; ".join(f"{n} {c:.6f} vs {p:.6f} (rel {abs(c - p) / abs(p):.2g}"
+                      f"), {ms:.2f} ms, peak {pk / 2**30:.2f} GiB"
+                      for n, c, p, ms, pk in out), flush=True)
+    return out
+
+
+def lpips_parity_phase(dev, tag: str, kernels: list[dict], model: str,
+                       root: str) -> None:
+    """Phase 12: LPIPS on phase 11's model ``model`` (``render_sets``,
+    ``metrics`` with a seeded random-weight file, each pair on the card
+    against the CPU, an undegraded render of the test view scored by
+    ``metrics.evaluate_dir`` against ``train.evaluate``), then the parity
+    matrix at full size. Adds the metrics path's launches to ``kernels``
+    and the matrix's readings beside them."""
+    import torch
+
+    from gslm_tpu_torch import renderer
+    from gslm_tpu_torch import train as T
+    from gslm_tpu_torch.eval import metrics as M
+    from gslm_tpu_torch.eval import render_sets as R
+    from gslm_tpu_torch.models.cameras import batch_from_metas
+    from gslm_tpu_torch.models.scene import Scene
+    from gslm_tpu_torch.renderer import overflow_probe
+    from gslm_tpu_torch.utils.paritycheck import run_parity_matrix
+
+    t_phase = time.perf_counter()
+    plat = [] if dev.type == "cuda" else ["--platform", dev.type]
+    weights = write_lpips_weights(os.path.join(root, "lpips_random.npz"))
+    saved_env = os.environ.get("GSLM_LPIPS_WEIGHTS")
+    os.environ["GSLM_LPIPS_WEIGHTS"] = weights
+    try:
+        zero_launches()
+        with entry_point():
+            R.main(["-m", model, "--iteration", "-1", "--skip_train", *plat])
+        r_launch = launches()
+        zero_launches()
+        t0 = time.perf_counter()
+        with entry_point() as tee:
+            M.main(["-m", model, *plat])
+        torch.cuda.synchronize()
+        metrics_s = time.perf_counter() - t0
+        m_launch = launches()
+        with open(os.path.join(model, "results.json")) as f:
+            (method, results), = json.load(f).items()
+        check(results["LPIPS"] is not None and "not found" not in tee.text(),
+              f"metrics reported LPIPS {results['LPIPS']}")
+        n_pairs = len(os.listdir(os.path.join(model, "test", method,
+                                              "renders")))
+        check(m_launch == {"A": 0, "B": n_pairs, "C": 0, "D": 0, "E": 0},
+              f"metrics launches {m_launch}, expected B {n_pairs}")
+        check(r_launch["A"] >= 1 and r_launch["B"] == r_launch["C"] == 0,
+              f"render_sets launches {r_launch}")
+        pairs = lpips_pairs(f"render_sets' {method}",
+                            os.path.join(model, "test", method), dev)
+
+        # an undegraded render of the test view, written as render_sets
+        # writes it, scored by evaluate_dir against train.evaluate
+        with open(os.path.join(model, "cfg_args")) as f:
+            src = json.load(f)["source_path"]
+        scene = Scene(src, model, resolution=1, eval_split=True,
+                      shuffle=False, load_iteration=-1, device=dev)
+        test = batch_from_metas(scene.get_test_cameras(), device=dev)
+        p = scene.params
+        pr = overflow_probe(p, test, config=T.RasterConfig(cull=True),
+                            active_sh_degree=p.sh_degree)
+        cfg = caps_from_counts(int(pr["n_aabb"]), int(pr["n_live"]))
+        full = T.evaluate(p, None, test, torch.zeros(3, device=dev), cfg,
+                          p.sh_degree, False)["psnr"]
+        with torch.no_grad():
+            img = renderer.batch_render(p, test, torch.zeros(3, device=dev),
+                                        config=cfg,
+                                        active_sh_degree=p.sh_degree)
+        check(int(img.overflow) == 0, "the probe-capacity render overflowed")
+        und = os.path.join(root, "undegraded")
+        for sub, imgs in (("renders", img.render), ("gt", test.gt_image)):
+            os.makedirs(os.path.join(und, sub))
+            for i, x in enumerate(imgs.cpu().numpy()):
+                R.save_png(os.path.join(und, sub, f"{i:05d}.png"), x)
+        summary, _ = M.evaluate_dir(und, True, device=dev)
+        check(summary["LPIPS"] is not None
+              and abs(summary["PSNR"] - full) <= CLI_PSNR_ROUNDING,
+              f"evaluate_dir of the undegraded render {summary} vs "
+              f"evaluate's PSNR {full}")
+        und_pairs = lpips_pairs("the undegraded test view", und, dev)
+        del scene, test, p, img
+    finally:
+        if saved_env is None:
+            os.environ.pop("GSLM_LPIPS_WEIGHTS", None)
+        else:
+            os.environ["GSLM_LPIPS_WEIGHTS"] = saved_env
+    print(f"{tag} metrics with LPIPS: {n_pairs} pair(s) in {metrics_s:.2f} s; "
+          f"results.json {results}; the undegraded test view: evaluate_dir "
+          f"PSNR {summary['PSNR']:.4f} vs evaluate {full:.4f}, SSIM "
+          f"{summary['SSIM']:.4f}, LPIPS {summary['LPIPS']:.6f}; LPIPS per "
+          f"1080p pair {statistics.median(x[3] for x in pairs + und_pairs):.2f}"
+          f" ms, peak {max(x[4] for x in pairs + und_pairs) / 2**30:.2f} GiB",
+          flush=True)
+    for entry, key in zip(kernels, "ABCDE"):
+        n = r_launch[key] + m_launch[key]
+        entry["launches_by_path"]["lpips_metrics"] = n
+        entry["launches"] += n
+
+    # ---- the parity matrix at full size ------------------------------------
+    zero_launches()
+    t0 = time.perf_counter()
+    res = run_parity_matrix()
+    matrix_s = time.perf_counter() - t0
+    matrix_launches = launches()
+    for name, v in res["variants"].items():
+        print(f"parity {name:18s} {'PASS' if v['ok'] else 'FAIL'}  "
+              f"max_err={v['max_err']:.3e}"
+              + (f"  per group {v['per_group']}" if "per_group" in v else ""),
+              flush=True)
+    print(f"{tag} parity matrix (2,048 Gaussians, 160x192; kernels on the "
+          f"card vs plain versions on the CPU): ok {res['ok']} in "
+          f"{matrix_s:.1f} s, kernel launches {matrix_launches} (comparison "
+          f"launches, not counted on any path); phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    check(res["ok"], "a parity matrix variant failed: "
+          + str({k: v for k, v in res["variants"].items() if not v["ok"]}))
+    v = res["variants"]
+    for entry, key, names in zip(kernels, "ABCDE", (
+            ("fwd_image", "fwd_bucket2", "fwd_bucket4"), (),
+            ("grads_scatter", "grads_nocull", "grads_batch2"),
+            ("grads_bucket2", "grads_bucket4"),
+            ("jvp_image", "jvp_lm_operator"))):
+        if names:
+            entry["parity_matrix_max_err"] = max(v[n]["max_err"]
+                                                 for n in names)
+        entry["parity_matrix_launches"] = matrix_launches[key]
 
 if __name__ == "__main__":
     sys.exit(main())

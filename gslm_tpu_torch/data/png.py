@@ -1,18 +1,22 @@
-"""The port's image codec: 8-bit PNG read and write, and Pillow's default
+"""The port's image codec: 8- and 16-bit PNG read and write, and Pillow's
 resize, in numpy and ``zlib``.
 
-The JAX package reads every image through Pillow, which the card's machine
-lacks. So PNG takes this codec on every machine, and the same file gives
-the same pixels everywhere. Another format (JPEG) goes through Pillow
-where it is installed (``load_image``) and raises where it is not.
+The JAX package reads every image through Pillow and depth maps through
+OpenCV, which the card's machine lacks. So PNG takes this codec on every
+machine, and the same file gives the same pixels everywhere. Another
+format (JPEG) goes through Pillow where it is installed (``load_image``)
+and raises where it is not.
 
-- ``read_png``: 8-bit, non-interlaced PNG of colour types 0 (grey), 2
-  (RGB), 4 (grey + alpha) and 6 (RGBA), all five row filters.
-- ``write_png``: 8-bit, filter Up on every row, zlib level 1.
-- ``resize_uint8``: Pillow's ``Image.resize(size)`` (BICUBIC, widened
-  support on downscale, 22-bit fixed-point coefficients, a horizontal then
-  a vertical pass with a uint8 clip between them, RGBA premultiplied by
-  alpha around it), bit for bit.
+- ``read_png``: 8- and 16-bit, non-interlaced PNG of colour types 0
+  (grey), 2 (RGB), 4 (grey + alpha) and 6 (RGBA), all five row filters.
+- ``read_png_cv2``: ``read_png`` in the layout of OpenCV's
+  ``cv2.imread(path, IMREAD_UNCHANGED)`` (BGR(A), grey + alpha as BGRA),
+  which the JAX depth path indexes.
+- ``write_png``: 8- or 16-bit, filter Up on every row, zlib level 1.
+- ``resize_uint8``: Pillow's ``Image.resize(size, filter)`` for BICUBIC
+  (the default) and LANCZOS (widened support on downscale, 22-bit
+  fixed-point coefficients, a horizontal then a vertical pass with a uint8
+  clip between them, RGBA premultiplied by alpha around it), bit for bit.
 """
 
 from __future__ import annotations
@@ -28,6 +32,12 @@ _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}   # colour type → samples per pixel
 _COLOUR_TYPES = {c: t for t, c in _CHANNELS.items()}
 _FILTER_NONE, _FILTER_SUB, _FILTER_UP, _FILTER_AVERAGE, _FILTER_PAETH = range(5)
+
+
+def is_png(path: str) -> bool:
+    """Whether the file starts with PNG's signature."""
+    with open(path, "rb") as f:
+        return f.read(len(_SIGNATURE)) == _SIGNATURE
 
 
 def _chunks(data: bytes, path: str):
@@ -116,9 +126,9 @@ def _unfilter(raw: np.ndarray, height: int, stride: int, bpp: int,
 
 
 def read_png(path: str) -> np.ndarray:
-    """An 8-bit PNG → uint8 (H, W, C), C = 1, 2, 3 or 4 (grey, grey +
-    alpha, RGB, RGBA). A palette, 16-bit or interlaced file raises
-    ``NotImplementedError``."""
+    """An 8- or 16-bit PNG → uint8 or uint16 (H, W, C), C = 1, 2, 3 or 4
+    (grey, grey + alpha, RGB, RGBA). A palette, interlaced or 1-, 2- or
+    4-bit file raises ``NotImplementedError``."""
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(_SIGNATURE):
@@ -136,19 +146,36 @@ def read_png(path: str) -> np.ndarray:
         raise NotImplementedError(
             f"{path}: PNG colour type {ctype} (palette) is not supported; "
             f"only 8-bit grey, grey + alpha, RGB and RGBA are")
-    if depth != 8:
+    if depth not in (8, 16):
         raise NotImplementedError(
             f"{path}: PNG of {depth}-bit samples is not supported; only "
-            f"8-bit samples are")
+            f"8- and 16-bit samples are")
     if interlace:
         raise NotImplementedError(
             f"{path}: interlaced (Adam7) PNG is not supported")
     c = _CHANNELS[ctype]
+    bpp = c * depth // 8             # bytes per pixel, the filters' unit
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != height * (width * c + 1):
+    if raw.size != height * (width * bpp + 1):
         raise ValueError(f"{path}: {raw.size} bytes of image data for "
-                         f"{width}x{height}x{c}")
-    return _unfilter(raw, height, width * c, c, path).reshape(height, width, c)
+                         f"{width}x{height}x{c} at {depth} bits")
+    img = _unfilter(raw, height, width * bpp, bpp, path)
+    if depth == 16:                  # big-endian samples
+        img = img.view(">u2").astype(np.uint16)
+    return img.reshape(height, width, c)
+
+
+def read_png_cv2(path: str) -> np.ndarray:
+    """``read_png`` laid out as ``cv2.imread(path, cv2.IMREAD_UNCHANGED)``
+    returns it: grey (H, W); grey + alpha as BGRA (grey three times, then
+    alpha); RGB as BGR; RGBA as BGRA."""
+    img = read_png(path)
+    c = img.shape[2]
+    if c == 1:
+        return img[..., 0]
+    if c == 2:
+        return img[..., [0, 0, 0, 1]]
+    return img[..., [2, 1, 0, 3][:c]]
 
 
 def _chunk(kind: bytes, payload: bytes) -> bytes:
@@ -157,29 +184,34 @@ def _chunk(kind: bytes, payload: bytes) -> bytes:
 
 
 def write_png(path: str, img: np.ndarray) -> None:
-    """Write uint8 (H, W) or (H, W, C), C = 1-4, as an 8-bit PNG: filter Up
-    on every row, zlib level 1."""
+    """Write uint8 or uint16 (H, W) or (H, W, C), C = 1-4, as an 8- or
+    16-bit PNG: filter Up on every row, zlib level 1."""
     img = np.asarray(img)
-    if img.dtype != np.uint8:
-        raise TypeError(f"write_png takes uint8 pixels, got {img.dtype}")
+    if img.dtype not in (np.uint8, np.uint16):
+        raise TypeError(f"write_png takes uint8 or uint16 pixels, got "
+                        f"{img.dtype}")
     if img.ndim == 2:
         img = img[..., None]
     h, w, c = img.shape
     if c not in _COLOUR_TYPES:
         raise ValueError(f"write_png: {c} channels (1-4 are written)")
-    rows = np.ascontiguousarray(img).reshape(h, w * c)
-    up = np.empty((h, w * c + 1), np.uint8)
+    depth = 8 * img.dtype.itemsize
+    # 16-bit samples are big-endian; the filter works on their bytes
+    rows = np.ascontiguousarray(img, img.dtype.newbyteorder(">")
+                                if depth == 16 else None)
+    rows = rows.view(np.uint8).reshape(h, w * c * depth // 8)
+    up = np.empty((h, rows.shape[1] + 1), np.uint8)
     up[:, 0] = _FILTER_UP
     up[0, 1:] = rows[0]
     np.subtract(rows[1:], rows[:-1], out=up[1:, 1:])
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, _COLOUR_TYPES[c], 0, 0, 0)
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, _COLOUR_TYPES[c], 0, 0, 0)
     with open(path, "wb") as f:
         f.write(_SIGNATURE + _chunk(b"IHDR", ihdr)
                 + _chunk(b"IDAT", zlib.compress(up.tobytes(), 1))
                 + _chunk(b"IEND", b""))
 
 
-# ---- Pillow's default resize (libImaging/Resample.c) -----------------------
+# ---- Pillow's resize (libImaging/Resample.c) -------------------------------
 
 _PRECISION_BITS = 32 - 8 - 2
 
@@ -193,13 +225,30 @@ def _bicubic(x: np.ndarray) -> np.ndarray:
     return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
 
 
-def _coefficients(in_size: int, out_size: int):
+def _sinc(x: np.ndarray) -> np.ndarray:
+    """Pillow's ``sinc_filter``: sin(πx) / (πx), 1 at 0."""
+    px = x * math.pi
+    return np.where(x == 0.0, 1.0, np.sin(px) / np.where(x == 0.0, 1.0, px))
+
+
+def _lanczos(x: np.ndarray) -> np.ndarray:
+    """Pillow's ``lanczos_filter``: the sinc truncated by sinc(x / 3) on
+    [-3, 3)."""
+    return np.where((-3.0 <= x) & (x < 3.0), _sinc(x) * _sinc(x / 3), 0.0)
+
+
+# filter name → (Pillow's filter function, its support)
+_FILTERS = {"bicubic": (_bicubic, 2.0), "lanczos": (_lanczos, 3.0)}
+
+
+def _coefficients(in_size: int, out_size: int, filt: str = "bicubic"):
     """Pillow's ``precompute_coeffs`` and ``normalize_coeffs_8bpc`` for
-    BICUBIC over the whole input: (xmin (out,), taps (out, ksize) int32 in
-    22-bit fixed point, zero past each output's xmax)."""
+    the filter ``filt`` over the whole input: (xmin (out,), taps (out,
+    ksize) int32 in 22-bit fixed point, zero past each output's xmax)."""
+    fn, filter_support = _FILTERS[filt]
     scale = float(in_size) / out_size
     filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale
+    support = filter_support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     center = (np.arange(out_size) + 0.5) * scale
     # C's (int) cast truncates toward zero
@@ -208,7 +257,7 @@ def _coefficients(in_size: int, out_size: int):
                       in_size).astype(np.int64) - xmin
     x = np.arange(ksize)
     inside = x[None, :] < xmax[:, None]
-    w = np.where(inside, _bicubic(
+    w = np.where(inside, fn(
         (x[None, :] + xmin[:, None] - center[:, None] + 0.5)
         * (1.0 / filterscale)), 0.0)
     ww = np.zeros(out_size)
@@ -221,12 +270,13 @@ def _coefficients(in_size: int, out_size: int):
     return xmin, np.where(inside, taps, 0)
 
 
-def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+def _resample_axis(img: np.ndarray, out_size: int, axis: int,
+                   filt: str) -> np.ndarray:
     """One pass along ``axis`` (0: rows, 1: columns) of uint8 (H, W, C), in
     int32 as Pillow's C sums (255 times the taps' absolute sum stays below
     2^31)."""
     in_size = img.shape[axis]
-    xmin, taps = _coefficients(in_size, out_size)
+    xmin, taps = _coefficients(in_size, out_size, filt)
     src = np.moveaxis(img, axis, 0).astype(np.int32)
     acc = np.full((out_size,) + src.shape[1:], 1 << (_PRECISION_BITS - 1),
                   np.int32)
@@ -238,11 +288,16 @@ def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
     return np.moveaxis(out, 0, axis)
 
 
-def resize_uint8(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
-    """Pillow's ``Image.fromarray(img).resize(size)`` for uint8 (H, W, C),
-    C = 1-4: ``size`` is (width, height). Grey + alpha and RGBA are
-    premultiplied by alpha around the passes, as Pillow's La and RGBa
-    modes do. The same size returns a copy."""
+def resize_uint8(img: np.ndarray, size: tuple[int, int],
+                 filt: str = "bicubic") -> np.ndarray:
+    """Pillow's ``Image.fromarray(img).resize(size, filter)`` for uint8
+    (H, W, C), C = 1-4: ``size`` is (width, height), ``filt`` "bicubic"
+    (Pillow's default) or "lanczos" (``Image.LANCZOS``). Grey + alpha and
+    RGBA are premultiplied by alpha around the passes, as Pillow's La and
+    RGBa modes do. The same size returns a copy."""
+    if filt not in _FILTERS:
+        raise ValueError(f"resize_uint8: filter {filt!r}, expected one of "
+                         f"{sorted(_FILTERS)}")
     w, h = size
     img = np.asarray(img, np.uint8)
     squeeze = img.ndim == 2
@@ -255,9 +310,9 @@ def resize_uint8(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
         img = _premultiply(img)
     out = img
     if w != img.shape[1]:
-        out = _resample_axis(out, w, 1)
+        out = _resample_axis(out, w, 1, filt)
     if h != img.shape[0]:
-        out = _resample_axis(out, h, 0)
+        out = _resample_axis(out, h, 0, filt)
     if alpha:
         out = _unpremultiply(out)
     return out[..., 0] if squeeze else out
@@ -283,14 +338,18 @@ def _unpremultiply(img: np.ndarray) -> np.ndarray:
 
 
 def load_image(path: str) -> np.ndarray:
-    """Any image file → uint8 (H, W) or (H, W, C), as ``np.asarray`` of
-    Pillow's image gives it. PNG takes ``read_png`` (grey comes back
-    (H, W), as Pillow gives it); another format (JPEG) needs Pillow and
-    raises ``ImportError`` without it."""
-    with open(path, "rb") as f:
-        is_png = f.read(len(_SIGNATURE)) == _SIGNATURE
-    if is_png:
+    """Any 8-bit image file → uint8 (H, W) or (H, W, C), as ``np.asarray``
+    of Pillow's image gives it. PNG takes ``read_png`` (grey comes back
+    (H, W), as Pillow gives it; a 16-bit PNG raises
+    ``NotImplementedError``: only depth maps are 16-bit, and they are read
+    with ``read_png_cv2``); another format (JPEG) needs Pillow and raises
+    ``ImportError`` without it."""
+    if is_png(path):
         img = read_png(path)
+        if img.dtype != np.uint8:
+            raise NotImplementedError(
+                f"{path}: a 16-bit image is read as a depth map only; "
+                f"images must be 8-bit")
         return img[..., 0] if img.shape[2] == 1 else img
     try:
         from PIL import Image

@@ -1,10 +1,12 @@
-"""Quality metrics over rendered sets: SSIM / PSNR (gslm_tpu/eval/metrics.py).
+"""Quality metrics over rendered sets: SSIM / PSNR / LPIPS
+(gslm_tpu/eval/metrics.py).
 
 For every ``<model>/test/ours_<iter>`` directory, pair renders with gt,
-compute the metrics (SSIM through kernel B on the card) and write
-``results.json`` and ``per_view.json`` in the JAX package's schema. Images
-are read by the port's own PNG codec. LPIPS is not ported yet: it is
-reported as null, as the JAX package reports it without its weights.
+compute the metrics (SSIM through kernel B on the card, LPIPS through
+``eval/lpips.py``) and write ``results.json`` and ``per_view.json`` in the
+JAX package's schema. Images are read by the port's own PNG codec. LPIPS
+needs a weight file (``eval/lpips.py``); without one, or with
+``--no_lpips``, it is reported as null, with the JAX package's note.
 
 Usage: python -m gslm_tpu_torch.eval.metrics -m <model_path> [...]
 """
@@ -20,11 +22,9 @@ import torch
 
 from gslm_tpu_torch.data.png import load_image
 from gslm_tpu_torch.device import platform_device, resolve_device
+from gslm_tpu_torch.eval import lpips as lpips_mod
 from gslm_tpu_torch.ops.ssim import ssim
 from gslm_tpu_torch.utils.image import psnr
-
-_NO_LPIPS = ("LPIPS is not ported to gslm_tpu_torch yet: reporting "
-             "LPIPS: null")
 
 
 def read_images(renders_dir: str, gt_dir: str):
@@ -49,30 +49,40 @@ def pair_metrics(render: torch.Tensor, gt: torch.Tensor):
 def evaluate_dir(method_dir: str, use_lpips: bool = True, *, device=None):
     """Metrics over one ours_<iter> directory (``renders/`` and ``gt/``).
     Returns (summary, per_view) in the JAX package's schema; LPIPS is null
-    (with a printed note when ``use_lpips`` asks for it)."""
+    without its weights (with a printed note when ``use_lpips`` asks for
+    it)."""
     dev = resolve_device(device)
-    if use_lpips:
-        print(_NO_LPIPS)
     names, renders, gts = read_images(os.path.join(method_dir, "renders"),
                                       os.path.join(method_dir, "gt"))
-    ssims, psnrs = [], []
+    lpips_ok = use_lpips and lpips_mod.available()
+    if use_lpips and not lpips_ok:
+        print(f"LPIPS weights not found at {lpips_mod.default_weight_path()}"
+              " — reporting LPIPS: null. Export them once on any box with"
+              " torchvision (tools/export_lpips_weights.py) and point"
+              " GSLM_LPIPS_WEIGHTS at the npz.")
+    ssims, psnrs, lpipss = [], [], []
     for r, g in zip(renders, gts):
-        s, p = pair_metrics(torch.tensor(r, device=dev),
-                            torch.tensor(g, device=dev))
+        r, g = torch.tensor(r, device=dev), torch.tensor(g, device=dev)
+        s, p = pair_metrics(r, g)
         ssims.append(float(s))
         psnrs.append(float(p))
+        if lpips_ok:
+            with torch.no_grad():
+                lpipss.append(float(lpips_mod.lpips(r[None], g[None])[0]))
     summary = {"SSIM": float(np.mean(ssims)), "PSNR": float(np.mean(psnrs)),
-               "LPIPS": None}
+               "LPIPS": float(np.mean(lpipss)) if lpips_ok else None}
     per_view = {"SSIM": dict(zip(names, ssims)),
-                "PSNR": dict(zip(names, psnrs)), "LPIPS": {}}
+                "PSNR": dict(zip(names, psnrs)),
+                "LPIPS": dict(zip(names, lpipss)) if lpips_ok else {}}
     return summary, per_view
 
 
 def evaluate(model_paths: list[str], use_lpips: bool = True, *, device=None):
     """``evaluate_dir`` over every ``<scene>/test/ours_<iter>`` of each
     model path; writes ``<scene>/results.json`` and ``per_view.json``."""
-    if use_lpips:
-        print(_NO_LPIPS)
+    if use_lpips and not lpips_mod.available():
+        print("LPIPS weights not found "
+              f"({lpips_mod.default_weight_path()}); reporting LPIPS=null")
     for scene_dir in model_paths:
         print("Scene:", scene_dir)
         full, per_view = {}, {}

@@ -5,8 +5,9 @@ Resolution selection, alpha masks, the train/test exposure half-masks,
 the nerf++ extent, cameras.json, and the PLY + exposure.json export.
 Pixels stay host numpy in ``CameraMeta``; the model lives on ``device``.
 Images are read and resized by the port's codec (``data/png.py``), which
-reproduces Pillow's default resize. Monocular depth maps are not read yet:
-a camera whose depth file exists raises."""
+reproduces Pillow's default resize. Monocular inverse-depth maps (16-bit
+PNG) are read in OpenCV's channel order (``read_png_cv2``) and resized as
+``cv2.resize`` does (``data/resample.resize_linear``)."""
 
 from __future__ import annotations
 
@@ -20,8 +21,9 @@ import torch
 
 from gslm_tpu_torch.data.ply import (load_gaussians_ply, save_gaussians_ply,
                                      store_point_cloud)
-from gslm_tpu_torch.data.png import load_image, resize_uint8
+from gslm_tpu_torch.data.png import load_image, read_png_cv2, resize_uint8
 from gslm_tpu_torch.data.readers import load_scene_info
+from gslm_tpu_torch.data.resample import resize_linear
 from gslm_tpu_torch.device import resolve_device
 from gslm_tpu_torch.models.cameras import CameraMeta
 from gslm_tpu_torch.models.gaussians import (GaussianAux, GaussianParams,
@@ -60,7 +62,14 @@ def load_camera_pixels(meta: CameraMeta, resolution: int,
                        train_test_exp: bool = False,
                        is_test_dataset: bool = False,
                        is_nerf_synthetic: bool = False) -> CameraMeta:
-    """``meta`` with its image and alpha mask at the selected resolution."""
+    """``meta`` with its image and alpha mask at the selected resolution,
+    and, where its depth file exists, the inverse-depth map, its mask and
+    reliability: the map over 512 (NeRF-synthetic) or 2^16, resized,
+    negatives clamped to 0; a view whose ``depth_params`` scale lies
+    outside [0.2, 5] × the median scale is unreliable (mask zero); the
+    scale and offset applied where the scale is positive. Of a
+    multi-channel map the first channel in OpenCV's order is taken: blue
+    of RGB(A), grey of grey + alpha."""
     if meta.image is not None and meta.alpha_mask is not None:
         # the Blender reader composited full-resolution RGBA; resize if needed
         rgb = np.asarray(meta.image)
@@ -91,15 +100,34 @@ def load_camera_pixels(meta: CameraMeta, resolution: int,
         else:
             alpha[..., alpha.shape[-1] // 2:] = 0   # fit exposure on the left
 
+    invdepth = None
+    depth_mask = None
+    depth_reliable = False
     if meta.depth_path and os.path.exists(meta.depth_path):
-        raise NotImplementedError(
-            f"{meta.depth_path}: monocular depth maps are not read by the "
-            f"port yet (ROADMAP.md queue 1 item 4, with the depth-scale "
-            f"tool)")
+        raw = read_png_cv2(meta.depth_path)
+        if raw.ndim != 2:
+            # the JAX package picks the channel last; every step before it
+            # works per channel, so picking it first gives the same map
+            raw = raw[..., 0]
+        divisor = 512.0 if is_nerf_synthetic else float(2 ** 16)
+        invdepth = resize_linear(raw.astype(np.float32) / divisor, (w, h))
+        invdepth[invdepth < 0] = 0
+        depth_mask = np.ones((1, h, w), np.float32)
+        depth_reliable = True
+        dp = meta.depth_params
+        if dp is not None:
+            if (dp["scale"] < 0.2 * dp["med_scale"]
+                    or dp["scale"] > 5 * dp["med_scale"]):
+                depth_reliable = False
+                depth_mask *= 0
+            if dp["scale"] > 0:
+                invdepth = invdepth * dp["scale"] + dp["offset"]
+        invdepth = invdepth[None]
 
     return dataclasses.replace(
         meta, image=np.clip(rgb, 0.0, 1.0), alpha_mask=alpha, width=w,
-        height=h, invdepthmap=None, depth_mask=None, depth_reliable=False)
+        height=h, invdepthmap=invdepth, depth_mask=depth_mask,
+        depth_reliable=depth_reliable)
 
 
 def camera_to_json(idx: int, meta: CameraMeta) -> dict:

@@ -42,7 +42,11 @@ equal to ``blur_plain`` (``torch.equal``) for k in {1, 3, 5, 11, 15} on
 reversed-tap VJP and the JVP. ``densify_and_prune`` on the card equal to
 its run on CPU copies of the same inputs and noise: the counts and
 ``alive`` exactly, parameters within 1e-6 of max |value| per group (CUDA's
-and the CPU's float32 exp and sigmoid may differ in the last bit)."""
+and the CPU's float32 exp and sigmoid may differ in the last bit). Kernel
+C at depth_grad=True on a depth L1's cotangent (invdepth row nonzero)
+against its plain version at the bound above; LPIPS on the card within
+1e-4 relative of the CPU's, TF32 on in the caller; the quick parity matrix
+(utils/paritycheck.py) all ok."""
 
 import numpy as np
 import pytest
@@ -734,3 +738,71 @@ def test_densify_and_prune_on_card_equals_cpu(cuda, screen):
         for m in ("mu", "nu"):
             assert torch.equal(getattr(opt, m)[g].cpu(),
                                getattr(host_opt, m)[g]), (m, g)
+
+
+@pytest.mark.cuda
+def test_composite_bwd_kernel_on_a_depth_loss(cuda, monkeypatch):
+    """Kernel C at depth_grad=True on the cotangent a depth L1 gives (the
+    invdepth row nonzero), against its plain version per field."""
+    from gslm_tpu_torch.ops import rasterize_cuda as rc
+    params = random_gaussians(np.random.default_rng(0), n=4096, spread=1.5,
+                              device=cuda)
+    cams = ring_camera_batch(1, 120, 200, device=cuda)
+    target = torch.rand((1, 1, 120, 200), device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(2))
+    got = []
+    real = rc.Composite.backward
+
+    def backward(ctx, gtiles, gwalked):
+        records, starts, counts, tiles = ctx.saved_tensors
+        got.append((records, starts, counts, *ctx.geometry[:2],
+                    gtiles[:, :rc.IMG_ROWS].clone(),
+                    tiles[:, rc.IMG_ROWS:], ctx.geometry[2]))
+        return real(ctx, gtiles, gwalked)
+
+    monkeypatch.setattr(rc.Composite, "backward", staticmethod(backward))
+    out = batch_render(params, cams, torch.zeros(3, device=cuda),
+                       config=RasterConfig(depth_grad=True))
+    loss = (torch.abs(out.render - cams.gt_image).mean()
+            + torch.abs(out.invdepth - target).mean())
+    loss.backward()
+    monkeypatch.undo()
+    (records, starts, counts, ntx, view_rows, gtiles, state, depth_grad), = got
+    assert depth_grad is True
+    assert float(gtiles[:, 3].abs().max()) > 0
+    want = composite_tiles_bwd_plain(records, starts, counts, ntx, view_rows,
+                                     gtiles, True)
+    mine = composite_tiles_bwd(records, starts, counts, ntx, view_rows,
+                               gtiles, state, True)
+    assert bool(torch.isfinite(mine).all())
+    for f in range(10):
+        scale = float(want[:, f].abs().max()) + 1e-12
+        assert _knife_edge(mine[:, f], want[:, f], scale), f
+    assert float(mine[:, 9].abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_lpips_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """LPIPS with random weights (the real file's shapes) on two pairs at
+    136x200: the card's values within 1e-4 relative of the CPU's."""
+    from chip_smoke import write_lpips_weights
+    from gslm_tpu_torch.eval import lpips
+    path = write_lpips_weights(str(tmp_path / "lpips.npz"))
+    rng = np.random.default_rng(1)
+    a = rng.uniform(0, 1, (2, 3, 136, 200)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
+    want = lpips.lpips(torch.tensor(a), torch.tensor(b), weight_path=path)
+    # the metric turns TF32 off inside the call, whatever the caller set
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    got = lpips.lpips(torch.tensor(a, device=cuda),
+                      torch.tensor(b, device=cuda), weight_path=path)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+def test_parity_matrix_quick_on_card(cuda):
+    from gslm_tpu_torch.utils.paritycheck import VARIANTS, run_parity_matrix
+    res = run_parity_matrix(quick=True)
+    assert list(res["variants"]) == list(VARIANTS)
+    bad = {k: v for k, v in res["variants"].items() if not v["ok"]}
+    assert res["ok"] and not bad, bad

@@ -320,7 +320,13 @@ def test_png_reader_names_what_it_cannot_read(tmp_path, what):
         Image.fromarray(rng.integers(0, 256, (8, 8, 3), np.uint8)).convert(
             "P").save(path)
     elif what == "16-bit":
-        Image.fromarray(rng.integers(0, 65535, (8, 8), np.uint16)).save(path)
+        # read as a depth map (tests/test_torch_depth.py); not as an image
+        px = rng.integers(0, 65535, (8, 8), np.uint16)
+        Image.fromarray(px).save(path)
+        np.testing.assert_array_equal(read_png(path)[..., 0], px)
+        with pytest.raises(NotImplementedError, match="x.png"):
+            load_image(path)
+        return
     else:
         write_png(path, rng.integers(0, 256, (8, 8, 3), np.uint8))
         data = bytearray(_bytes(path))

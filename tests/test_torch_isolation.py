@@ -1,7 +1,7 @@
 """gslm_tpu_torch stands alone: it imports neither JAX nor gslm_tpu, nor,
-when its modules are imported, Pillow, OpenCV, tqdm or TensorBoard (absent
-where the card is); and its entry points never drift onto the CPU
-unasked."""
+when its modules are imported, Pillow, OpenCV, torchvision, tqdm or
+TensorBoard (absent where the card is); and its entry points never drift
+onto the CPU unasked."""
 
 import os
 import subprocess
@@ -26,9 +26,10 @@ for name in names:
 import chip_smoke
 import compare_kernels
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "jaxlib", "gslm_tpu", "PIL", "cv2")
+             if m in ("jax", "jaxlib", "gslm_tpu", "PIL", "cv2",
+                      "torchvision")
              or m.startswith(("jax.", "jaxlib.", "gslm_tpu.", "PIL.",
-                              "cv2."))
+                              "cv2.", "torchvision."))
              or (m not in by_torch
                  and m.split(".")[0] in ("tqdm", "tensorboard")
                  or m.startswith("torch.utils.tensorboard")))
@@ -43,7 +44,7 @@ def test_port_imports_no_jax_and_no_gslm_tpu():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split()[0])
-    assert n_modules >= 29
+    assert n_modules >= 53
 
 
 def test_entry_points_need_a_device_without_cuda(monkeypatch):
