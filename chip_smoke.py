@@ -198,7 +198,26 @@ failed phase exits non-zero:
    ``utils.paritycheck.run_parity_matrix()`` at full size (2,048
    Gaussians, 160x192: the kernels against their plain versions on the
    CPU), its table printed, every variant ok.
-13. a ``{"kernels": [...]}`` line, then the last line
+13. data-parallel training over ranks (cell train-dp2-131k-1080p). (a) A
+   one-rank NCCL group in this process: ``make_dp_train_step`` on one view
+   and ``make_dp_lm_step`` on phase 7's window equal ``train_step`` and
+   ``lm_outer_step`` bit for bit. (b) Two gloo ranks spawned on the one
+   card (NCCL refuses two ranks on one device), the collectives on CUDA
+   tensors (which ones gloo takes is printed; every rank must take
+   them): the data-parallel Adam step on 2 views (1 per rank) against
+   ``train_step`` on the same 2 views (loss within 1e-6, parameters
+   within 1e-5 where the gradient exceeds 1e-3 of its group's largest,
+   ``xyz_gradient_accum`` within 1e-5 of its largest); the LM step on the
+   window padded to 6 (3 views and 25 val views per rank) against
+   ``lm_outer_step`` (best alpha equal, val loss and groups within rtol
+   1e-4, xyz unmoved); ``train.main --mesh_data 2`` on phase 9's scene
+   (50 iterations, density events at 25 and 50, test and checkpoint at
+   50) and ``train_lm.main --mesh_data 2`` from that checkpoint for one
+   LM iteration; every rank's state bit for bit equal to rank 0's after
+   each; each rank launched A, B, C and E. Prints the steps' times per
+   rank against the single process, the gradient all-reduce's time and
+   bytes, each rank's busy share and launches.
+14. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of gslm_tpu. It finds the package beside itself
@@ -211,6 +230,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import pathlib
 import re
 import statistics
 import subprocess
@@ -1051,7 +1071,8 @@ def run(dev, n_gauss: int, height: int, width: int) -> None:
     tag = f"[{card}]"
     kernels = serve_phase(dev, n_gauss, height, width, tag)
     kernels.append(train_phase(dev, n_gauss, height, width, tag, kernels))
-    kernels.append(lm_phase(dev, n_gauss, height, width, tag, kernels))
+    e_entry, lm_ref = lm_phase(dev, n_gauss, height, width, tag, kernels)
+    kernels.append(e_entry)
     kernels.insert(3, bucket_phase(dev, M1_N, height, width, tag, kernels))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_scene_") as root:
         src = scene_phase(dev, n_gauss, height, width, tag, kernels, root)
@@ -1060,6 +1081,7 @@ def run(dev, n_gauss: int, height: int, width: int) -> None:
         model = depth_phase(dev, n_gauss, height, width, tag, kernels, src,
                             root, adam_ms)
         lpips_parity_phase(dev, tag, kernels, model, root)
+        dp_phase(dev, n_gauss, height, width, tag, kernels, src, root, lm_ref)
     for entry, k in zip(kernels, "ABCDE"):
         if k in attrs:
             entry["attrs"] = attrs[k]
@@ -1487,26 +1509,18 @@ def train_phase(dev, n_gauss: int, height: int, width: int, tag: str,
             "mask_overhead_ms": rcc["mask overhead"]}
 
 
-def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
-             kernels: list[dict]) -> dict:
-    """Phase 7. Adds the LM step's launches to the entries of A, B and C in
-    ``kernels`` and returns kernel E's entry."""
+def lm_scene(dev, n_gauss: int, height: int, width: int):
+    """Cell lm-1080p-w5's inputs: the headline scene, ``EXPOSURES`` ring
+    views whose ground truth is the scene rendered with ``features_dc``
+    shifted (reachable targets), the window ``LMParams()`` draws from
+    ``default_rng(0)`` and the val views. Returns ``(params, all_train,
+    win, vidx)``."""
     import torch
 
     from gslm_tpu_torch.config import LMParams
-    from gslm_tpu_torch.models import gaussians as G
-    from gslm_tpu_torch.models.gaussians import PARAM_GROUPS
-    from gslm_tpu_torch.ops import rasterize_cuda as rc
-    from gslm_tpu_torch.ops.blur_cuda import blur_same
-    from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig, _cdiv
-    from gslm_tpu_torch.renderer import batch_render, stack_views
-    from gslm_tpu_torch.solver.cg import cgls_damped_unrolled
-    from gslm_tpu_torch.solver.operators import LMOperators
-    from gslm_tpu_torch.solver.residuals import (ResidualState,
-                                                 batch_residuals, res_dot)
-    from gslm_tpu_torch.train_lm import (lm_outer_step, lm_phase as
-                                         lm_phase_entry, select_window,
-                                         val_indices)
+    from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig
+    from gslm_tpu_torch.renderer import batch_render
+    from gslm_tpu_torch.train_lm import select_window, val_indices
     from gslm_tpu_torch.utils.synthetic import (random_gaussians,
                                                 ring_camera_batch)
 
@@ -1520,9 +1534,6 @@ def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     lm = LMParams()
     mb = lm.micro_batch
     bg = torch.zeros(3, device=dev)
-    kw = dict(rcfg=rcfg, lm=lm, active_sh_degree=3, use_exp=False)
-
-    # reachable targets: every view of the scene with features_dc shifted
     shift = torch.tensor(np.random.default_rng(1).normal(
         0, 0.2, (n_gauss, 1, 3)).astype(np.float32), device=dev)
     with torch.no_grad():
@@ -1537,7 +1548,37 @@ def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
         gt_image=torch.cat([t.render for t in targets]))
     del targets
     win = select_window(EXPOSURES, lm.num_images, np.random.default_rng(0))
-    vidx = val_indices(EXPOSURES, lm)
+    return params, all_train, win, val_indices(EXPOSURES, lm)
+
+
+def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
+             kernels: list[dict]) -> tuple[dict, dict]:
+    """Phase 7. Adds the LM step's launches to the entries of A, B and C in
+    ``kernels``; returns kernel E's entry and the step's result, which
+    phase 13 holds its data-parallel steps to: dict(state, info, ms) (the
+    new parameters and the info as tensors, the step's median ms)."""
+    import torch
+
+    from gslm_tpu_torch.config import LMParams
+    from gslm_tpu_torch.models import gaussians as G
+    from gslm_tpu_torch.models.gaussians import PARAM_GROUPS
+    from gslm_tpu_torch.ops import rasterize_cuda as rc
+    from gslm_tpu_torch.ops.blur_cuda import blur_same
+    from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig, _cdiv
+    from gslm_tpu_torch.renderer import stack_views
+    from gslm_tpu_torch.solver.cg import cgls_damped_unrolled
+    from gslm_tpu_torch.solver.operators import LMOperators
+    from gslm_tpu_torch.solver.residuals import (ResidualState,
+                                                 batch_residuals, res_dot)
+    from gslm_tpu_torch.train_lm import lm_outer_step
+    from gslm_tpu_torch.train_lm import lm_phase as lm_phase_entry
+
+    params, all_train, win, vidx = lm_scene(dev, n_gauss, height, width)
+    rcfg = RasterConfig(**LM_CAPS)
+    lm = LMParams()
+    mb = lm.micro_batch
+    bg = torch.zeros(3, device=dev)
+    kw = dict(rcfg=rcfg, lm=lm, active_sh_degree=3, use_exp=False)
     window, val = all_train.take(win), all_train.take(vidx)
     lcfg = rcfg.replace(depth_grad=False)
 
@@ -1721,18 +1762,20 @@ def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     kernels[2]["lane_bound_ms_lm_window"] = rcw["lane bound"]
     kernels[2]["mask_overhead_ms_lm_window"] = rcw["mask overhead"]
     kernels[2]["max_abs_err_lm_window"] = c_window_err
-    return {"name": "composite_jvp", "route": "cuda",
-            "source": "gslm_tpu_torch/csrc/composite_jvp.cu",
-            "replaces": "gslm_tpu/ops/rasterize_pallas_jvp.py:172",
-            "launches": launches["E"],
-            "launches_by_path": {"serve": 0, "train_step": 0,
-                                 "lm_outer_step": launches["E"]},
-            "max_abs_err": e_err, "primal_vs_A_max_abs_err": e_vs_a,
-            "ms": t["kernel E (window)"], "plain_ms": e_plain_ms,
-            "bound_ms": re_["bound"], "bound_by": re_["by"],
-            "library_ms": None, "lane_bound_ms": re_["lane bound"],
-            "culled_bound_ms": re_["culled bound"],
-            "mask_overhead_ms": re_["mask overhead"]}
+    ref = {"state": {k: v.clone() for k, v in state_tensors(new).items()},
+           "info": info_tensors(info), "ms": step_ms}
+    return ({"name": "composite_jvp", "route": "cuda",
+             "source": "gslm_tpu_torch/csrc/composite_jvp.cu",
+             "replaces": "gslm_tpu/ops/rasterize_pallas_jvp.py:172",
+             "launches": launches["E"],
+             "launches_by_path": {"serve": 0, "train_step": 0,
+                                  "lm_outer_step": launches["E"]},
+             "max_abs_err": e_err, "primal_vs_A_max_abs_err": e_vs_a,
+             "ms": t["kernel E (window)"], "plain_ms": e_plain_ms,
+             "bound_ms": re_["bound"], "bound_by": re_["by"],
+             "library_ms": None, "lane_bound_ms": re_["lane bound"],
+             "culled_bound_ms": re_["culled bound"],
+             "mask_overhead_ms": re_["mask overhead"]}), ref
 
 
 # the bool template parameters of each kernel, in order, for SASS labels
@@ -4038,6 +4081,535 @@ def lpips_parity_phase(dev, tag: str, kernels: list[dict], model: str,
             entry["parity_matrix_max_err"] = max(v[n]["max_err"]
                                                  for n in names)
         entry["parity_matrix_launches"] = matrix_launches[key]
+
+# ---- phase 13: data-parallel training over ranks ---------------------------
+
+DP_WORLD = 2            # part (b): gloo ranks sharing the one card
+DP_STEPS = 5            # timed data-parallel Adam steps per rank
+DP_ITERS = 50           # train.main --mesh_data 2: Adam iterations
+DP_DENSIFY = (20, 25)   # its --densify_from_iter, --densification_interval
+DP_TIMEOUT = 600.0      # join timeout of part (b)'s ranks (s)
+DP_LM_RTOL = 1e-4       # LM step across rank counts (tests' tolerance)
+
+
+def clone_state(params, aux, opt_state):
+    """Independent copies of a training state."""
+    from gslm_tpu_torch.models.gaussians import (PARAM_GROUPS, GaussianAux,
+                                                 GaussianParams)
+    from gslm_tpu_torch.optim import AdamState
+    p = GaussianParams(**{g: getattr(params, g).detach().clone()
+                          for g in PARAM_GROUPS},
+                       sh_degree=params.sh_degree, alive=params.alive.clone())
+    a = GaussianAux(*(getattr(aux, f).clone() for f in (
+        "max_radii2d", "xyz_gradient_accum", "denom")))
+    o = AdamState(mu={g: t.clone() for g, t in opt_state.mu.items()},
+                  nu={g: t.clone() for g, t in opt_state.nu.items()},
+                  step=opt_state.step)
+    return p, a, o
+
+
+def state_tensors(params, aux=None, opt_state=None) -> dict:
+    """Every tensor of a training state by name (no copies)."""
+    from gslm_tpu_torch.models.gaussians import PARAM_GROUPS
+    out = {g: getattr(params, g).detach() for g in PARAM_GROUPS}
+    out["alive"] = params.alive
+    if aux is not None:
+        out.update(max_radii2d=aux.max_radii2d, denom=aux.denom,
+                   xyz_gradient_accum=aux.xyz_gradient_accum)
+    if opt_state is not None:
+        out.update({f"mu/{g}": t for g, t in opt_state.mu.items()})
+        out.update({f"nu/{g}": t for g, t in opt_state.nu.items()})
+    return out
+
+
+def info_tensors(info: dict) -> dict:
+    out = {k: v for k, v in info.items() if k != "step_norms"}
+    out.update({f"norm/{g}": v for g, v in info["step_norms"].items()})
+    return out
+
+
+def bitwise_diff(a: dict, b: dict) -> list:
+    """The names whose tensors are not bit for bit equal."""
+    import torch
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
+def ranks_bitwise_equal(mesh, tensors: dict) -> bool:
+    """Whether every rank holds rank 0's ``tensors`` bit for bit (rank 0's
+    broadcast, compared on each rank, then the ranks' flags' min)."""
+    import torch
+
+    from gslm_tpu_torch.parallel.mesh import all_reduce, broadcast_
+    mine = [t.detach().reshape(-1).view(torch.uint8) if t.dtype != torch.bool
+            else t.to(torch.uint8) for t in tensors.values()]
+    theirs = [t.clone() for t in mine]
+    broadcast_(theirs, mesh.group)
+    differs = torch.tensor([int(not all(
+        torch.equal(a, b) for a, b in zip(mine, theirs)))],
+        device=mine[0].device)
+    return not bool(all_reduce([differs], "max", mesh.group)[0])
+
+
+def adam_held(got: dict, want: dict, got_m: dict, want_m: dict) -> dict:
+    """A data-parallel Adam step against the single process's, to the
+    tests' tolerances: the loss within 1e-6; each parameter group within
+    1e-5 where the single step's |gradient| exceeds 1e-3 of its group's
+    largest (Adam's first step moves the others by ±lr whatever their
+    gradient's size); xyz_gradient_accum within 1e-5 of its largest;
+    alive, denom and max_radii2d equal. Returns the errors."""
+    from gslm_tpu_torch.models.gaussians import PARAM_GROUPS
+    err = {"loss": abs(float(got_m["loss"]) - float(want_m["loss"]))}
+    for g in PARAM_GROUPS:
+        mu = want[f"mu/{g}"].abs()
+        sure = mu > 1e-3 * float(mu.max())
+        d = (got[g] - want[g]).abs()
+        err[g] = float(d[sure].max()) if bool(sure.any()) else 0.0
+    ref = want["xyz_gradient_accum"]
+    err["xyz_gradient_accum_rel"] = float(
+        (got["xyz_gradient_accum"] - ref).abs().max()) / max(
+        float(ref.abs().max()), 1e-30)
+    check(err["loss"] <= 1e-6, f"data-parallel loss: {err}")
+    check(all(err[g] <= 1e-5 for g in PARAM_GROUPS),
+          f"data-parallel parameters: {err}")
+    check(err["xyz_gradient_accum_rel"] <= 1e-5,
+          f"data-parallel xyz_gradient_accum: {err}")
+    check(not bitwise_diff({k: got[k] for k in ("alive", "max_radii2d",
+                                                "denom")}, want),
+          "data-parallel alive, max_radii2d or denom")
+    return {k: float(f"{v:.3g}") for k, v in err.items()}
+
+
+def lm_held(got: dict, want: dict, got_i: dict, want_i: dict) -> dict:
+    """A data-parallel LM step against the single process's: best_alpha
+    equal, best_val_loss within rtol 1e-4, xyz bit for bit (masked), each
+    other group within rtol 1e-4 (atol 1e-4 of its largest)."""
+    from gslm_tpu_torch.models.gaussians import PARAM_GROUPS
+    err = {"best_val_loss_rel": abs(float(got_i["best_val_loss"])
+                                    - float(want_i["best_val_loss"]))
+           / abs(float(want_i["best_val_loss"]))}
+    check(float(got_i["best_alpha"]) == float(want_i["best_alpha"]),
+          "data-parallel LM step: another best alpha")
+    check(err["best_val_loss_rel"] <= DP_LM_RTOL, f"LM val loss: {err}")
+    check(not bitwise_diff({"xyz": got["xyz"]}, want), "LM xyz moved")
+    for g in PARAM_GROUPS:
+        scale = max(float(want[g].abs().max()), 1e-30)
+        excess = ((got[g] - want[g]).abs()
+                  - DP_LM_RTOL * (want[g].abs() + scale))
+        err[g] = float((got[g] - want[g]).abs().max()) / scale
+        check(float(excess.max()) <= 0, f"LM group {g}: {err}")
+    return {k: float(f"{v:.3g}") for k, v in err.items()}
+
+
+def dp_one_rank(dev, n_gauss: int, height: int, width: int, tag: str,
+                lm_ref: dict) -> None:
+    """Phase 13 (a): a one-rank NCCL group in this process. The
+    data-parallel Adam step on one view and LM step on cell lm-1080p-w5's
+    window equal ``train_step`` and ``lm_outer_step`` (phase 7's,
+    ``lm_ref``) bit for bit."""
+    import torch
+    import torch.distributed as dist
+
+    from gslm_tpu_torch.config import LMParams, OptimizationParams
+    from gslm_tpu_torch.models.gaussians import GaussianAux
+    from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig
+    from gslm_tpu_torch.optim import init_adam
+    from gslm_tpu_torch.parallel import (make_dp_lm_step, make_dp_train_step,
+                                         make_mesh)
+    from gslm_tpu_torch.train import train_step
+
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method="tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+        check(mesh.shape == {"data": 1, "model": 1}
+              and dist.get_backend(mesh.group) == backend,
+              f"one-rank {backend} mesh {mesh}")
+        params, all_train, win, vidx = lm_scene(dev, n_gauss, height, width)
+        bg = torch.zeros(3, device=dev)
+        cam = all_train.take(slice(0, 1))
+        kw = dict(rcfg=RasterConfig(**TRAIN_CAPS), opt=OptimizationParams(),
+                  active_sh_degree=3, use_exp=False, sparse_adam=False,
+                  update_stats=True)
+        start = (params, GaussianAux.zeros(n_gauss, dev), init_adam(params))
+        runs = []
+        for step in (lambda *a: train_step(*a, **kw),
+                     lambda *a: train_step(*a, **kw),
+                     make_dp_train_step(mesh, **kw)):
+            p, a, o = clone_state(*start)
+            _, _, _, m = step(p, a, o, cam, bg, 1, 1.0, 0.0)
+            runs.append((state_tensors(p, a, o), m))
+        repeat = bitwise_diff(runs[1][0], runs[0][0])
+        adam_diff = bitwise_diff(runs[2][0], runs[0][0]) + bitwise_diff(
+            runs[2][1], runs[0][1])
+        print(f"{tag} 13a one-rank NCCL group: train_step twice bitwise "
+              f"{'equal' if not repeat else 'differs in ' + str(repeat)}; "
+              f"make_dp_train_step vs train_step on one view: "
+              f"{'bit for bit equal' if not adam_diff else adam_diff}",
+              flush=True)
+        check(not adam_diff, f"one-rank data-parallel Adam step: {adam_diff}")
+        del runs
+        lkw = dict(rcfg=RasterConfig(**LM_CAPS), lm=LMParams(),
+                   active_sh_degree=3, use_exp=False)
+        t0 = time.perf_counter()
+        got, got_i = make_dp_lm_step(mesh, **lkw)(
+            params, params.alive, all_train.take(win), all_train.take(vidx),
+            bg)
+        sync_device(dev)
+        dp_s = time.perf_counter() - t0
+        lm_diff = bitwise_diff(state_tensors(got), lm_ref["state"]) + \
+            bitwise_diff(info_tensors(got_i), lm_ref["info"])
+        print(f"{tag} 13a make_dp_lm_step vs phase 7's lm_outer_step (window "
+              f"{win}, {len(vidx)} val views): "
+              f"{'bit for bit equal' if not lm_diff else lm_diff}; "
+              f"{dp_s:.2f} s vs {lm_ref['ms'] / 1e3:.2f} s (phase 7's "
+              f"median)", flush=True)
+        check(not lm_diff, f"one-rank data-parallel LM step: {lm_diff}")
+    finally:
+        dist.destroy_process_group()
+
+
+def sync_device(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def dp_rank(rank: int, world: int, port: int, out_dir: str, dev_type: str,
+            src: str, root: str, n_gauss: int, height: int,
+            width: int) -> None:
+    """Phase 13 (b)'s rank ``rank`` of ``world``, spawned: a gloo group on
+    127.0.0.1:``port``, every rank on cuda:0 (or the CPU, to rehearse);
+    reads phase 7's LM step from ``out_dir``/lm_ref.pt, writes its results
+    to ``out_dir``/rank<r>.json (its traceback to rank<r>.err)."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    dev = torch.device("cuda", 0) if dev_type == "cuda" else \
+        torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        res = dp_rank_body(rank, world, dev, src, root, n_gauss, height,
+                           width, os.path.join(out_dir, "lm_ref.pt"))
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_cuda_collectives(dev, rank: int, world: int) -> dict:
+    """Which collectives the port calls on CUDA tensors gloo takes: each
+    on float32, int32 and uint8 tensors, the result checked. Returns
+    {collective dtype: True or the error}."""
+    import torch
+    import torch.distributed as dist
+    took = {}
+    calls = {"all_reduce_sum": (dist.ReduceOp.SUM, sum(range(1, world + 1))),
+             "all_reduce_max": (dist.ReduceOp.MAX, world), "broadcast": 1}
+    for name, spec in calls.items():
+        for dtype in (torch.float32, torch.int32, torch.uint8):
+            t = torch.full((1 << 10,), rank + 1, dtype=dtype, device=dev)
+            try:
+                if name == "broadcast":
+                    dist.broadcast(t, 0)
+                    want = spec
+                else:
+                    dist.all_reduce(t, op=spec[0])
+                    want = spec[1]
+                took[f"{name} {str(dtype)[6:]}"] = (
+                    t.device == dev and bool((t == want).all()))
+            except RuntimeError as e:
+                took[f"{name} {str(dtype)[6:]}"] = str(e).splitlines()[0]
+    return took
+
+
+def dp_rank_body(rank: int, world: int, dev, src: str, root: str,
+                 n_gauss: int, height: int, width: int, lm_ref: str) -> dict:
+    """Phase 13 (b) on one rank: its checks, times and launch counts as a
+    dict that ``json`` writes."""
+    import torch
+
+    from gslm_tpu_torch import train as T
+    from gslm_tpu_torch import train_lm as TL
+    from gslm_tpu_torch.config import LMParams, OptimizationParams
+    from gslm_tpu_torch.models.gaussians import PARAM_GROUPS, GaussianAux
+    from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig
+    from gslm_tpu_torch.optim import init_adam
+    from gslm_tpu_torch.parallel import (make_dp_lm_step, make_dp_train_step,
+                                         make_mesh)
+    from gslm_tpu_torch.parallel.mesh import all_reduce, barrier
+
+    mesh = make_mesh(world, 1)
+    out = {"rank": rank, "mesh": mesh.shape}
+    out["gloo_cuda"] = gloo_cuda_collectives(dev, rank, world)
+    check(all(v is True for v in out["gloo_cuda"].values()),
+          f"gloo on CUDA tensors: {out['gloo_cuda']}")
+
+    def sync():
+        sync_device(dev)
+        barrier(mesh)
+
+    def wall_ms(fn):
+        sync_device(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        sync_device(dev)
+        return res, (time.perf_counter() - t0) * 1e3
+
+    # ---- the headline scene and its 2-view Adam batch ---------------------
+    params, all_train, win, vidx = lm_scene(dev, n_gauss, height, width)
+    bg = torch.zeros(3, device=dev)
+    cam2 = all_train.take(slice(0, world))
+    kw = dict(rcfg=RasterConfig(**CAPS), opt=OptimizationParams(),
+              active_sh_degree=3, use_exp=False, sparse_adam=False,
+              update_stats=True)
+    start = (params, GaussianAux.zeros(n_gauss, dev), init_adam(params))
+    totals = {k: 0 for k in "ABCDE"}
+
+    def count(before):
+        after = launches()
+        for k in totals:
+            totals[k] += after[k] - before[k]
+        return _delta(before, after)
+
+    # ---- Adam: the single process on the 2 views (rank 0, the others wait)
+    sync()
+    if rank == 0:
+        p, a, o = clone_state(*start)
+        _, _, _, want_m = T.train_step(p, a, o, cam2, bg, 1, 1.0, 0.0, **kw)
+        want = {k: v.clone() for k, v in state_tensors(p, a, o).items()}
+        single = [wall_ms(lambda: T.train_step(p, a, o, cam2, bg, 2, 1.0,
+                                               0.0, **kw))[1]
+                  for _ in range(DP_STEPS)]
+        out["single_adam_ms"] = single
+        del p, a, o
+    sync()
+    # ---- Adam: one view per rank -----------------------------------------
+    step = make_dp_train_step(mesh, **kw)
+    p, a, o = clone_state(*start)
+    before = launches()
+    _, _, _, got_m = step(p, a, o, cam2, bg, 1, 1.0, 0.0)
+    sync_device(dev)
+    out["adam_launches"] = count(before)
+    got = state_tensors(p, a, o)
+    out["adam_ranks_equal"] = ranks_bitwise_equal(mesh, got)
+    if rank == 0:
+        out["adam_err"] = adam_held(got, want, got_m, want_m)
+        del want
+    before = launches()
+    out["dp_adam_ms"] = [wall_ms(lambda: step(p, a, o, cam2, bg, 2, 1.0,
+                                              0.0))[1]
+                         for _ in range(DP_STEPS)]
+    if dev.type == "cuda":
+        n_k, busy, wall = device_busy(lambda: step(p, a, o, cam2, bg, 3,
+                                                   1.0, 0.0))
+    else:
+        n_k, busy, wall = 0, 0.0, wall_ms(lambda: step(p, a, o, cam2, bg,
+                                                       3, 1.0, 0.0))[1]
+    count(before)
+    out["dp_adam_busy"] = [n_k, busy, wall]
+    # the gradient all-reduce (reduce_summary's float sums) at this scene's
+    # capacity and at the command lines' (2 n_gauss)
+    out["allreduce"] = []
+    for cap in (n_gauss, 2 * n_gauss):
+        bufs = [torch.randn((cap,) + getattr(params, g).shape[1:],
+                            device=dev) for g in PARAM_GROUPS
+                if g != "exposure"] + [params.exposure.detach().clone(),
+                                       torch.randn(cap, 2, device=dev)] + [
+            torch.zeros((), device=dev) for _ in range(4)]
+        sync()
+        out["allreduce"].append(
+            (sum(4 * t.numel() for t in bufs),
+             [wall_ms(lambda: all_reduce(bufs, "sum", mesh.group))[1]
+              for _ in range(DP_STEPS)]))
+    del p, a, o, bufs
+
+    # ---- LM: the ranks' step against phase 7's single process ------------
+    lkw = dict(rcfg=RasterConfig(**LM_CAPS), lm=LMParams(),
+               active_sh_degree=3, use_exp=False)
+    sync()
+    # lm_phase's padding: the window to 6 (a zero-weight copy of its first
+    # view), 3 views per rank; the 50 val views 25 per rank, chunks of 5
+    pad = win + [win[0]] * ((-len(win)) % world)
+    w = torch.tensor([1.0] * len(win) + [0.0] * (len(pad) - len(win)),
+                     device=dev)
+    before = launches()
+    (got, got_i), ms = wall_ms(lambda: make_dp_lm_step(mesh, **lkw)(
+        params, params.alive, all_train.take(pad), all_train.take(vidx), bg,
+        w, torch.ones(len(vidx), device=dev)))
+    out["lm_launches"] = count(before)
+    out["dp_lm_ms"] = ms
+    out["lm_ranks_equal"] = ranks_bitwise_equal(
+        mesh, state_tensors(got) | info_tensors(got_i))
+    if rank == 0:
+        want = torch.load(lm_ref, map_location=dev)
+        out["lm_err"] = lm_held(state_tensors(got), want["state"],
+                                info_tensors(got_i), want["info"])
+        out["lm_best"] = [float(got_i["best_val_loss"]),
+                          float(want["info"]["best_val_loss"])]
+    del got, got_i, params, all_train, start
+
+    # ---- the command lines over the ranks ----------------------------------
+    model = os.path.join(root, "dp")
+    ck = os.path.join(model, f"chkpnt{DP_ITERS}.npz")
+    common = ["-s", src, "-m", model, "-r", "1", "--eval", "--capacity",
+              str(2 * n_gauss), "--mesh_data", str(world),
+              "--disable_viewer"] + (["--platform", "cpu"]
+                                     if dev.type == "cpu" else [])
+    argv = common + ["--iterations", str(DP_ITERS),
+                     "--densify_from_iter", str(DP_DENSIFY[0]),
+                     "--densification_interval", str(DP_DENSIFY[1]),
+                     "--test_iterations", str(DP_ITERS),
+                     "--save_iterations", str(DP_ITERS),
+                     "--checkpoint_iterations", str(DP_ITERS)]
+    sync()
+    before = launches()
+    t0 = time.perf_counter()
+    with entry_point():
+        _, p, a, o = T.main(argv)
+    out["train_s"] = time.perf_counter() - t0
+    out["train_launches"] = count(before)
+    out["train_ranks_equal"] = ranks_bitwise_equal(mesh,
+                                                   state_tensors(p, a, o))
+    out["train_alive"] = int(p.alive.sum())
+    out["train_step"] = o.step
+    del p, a, o
+    # the most make_raster_config takes (16 records per slot): 50
+    # iterations leave ~4.9 M records per view, so the 5-view val chunks
+    # need three doublings of it, inside lm_phase's four tries
+    lm_argv = common + ["--start_checkpoint", ck, "--iterations",
+                        str(DP_ITERS + 1), "--jvp_start", str(DP_ITERS + 1),
+                        "--dup_capacity", str(16 * 2 * n_gauss)]
+    sync()
+    before = launches()
+    t0 = time.perf_counter()
+    with entry_point() as tee:
+        _, p, a, o = TL.main(lm_argv)
+    out["lm_cli_s"] = time.perf_counter() - t0
+    out["lm_cli_launches"] = count(before)
+    out["lm_cli_ranks_equal"] = ranks_bitwise_equal(mesh, state_tensors(p))
+    out["lm_cli_lines"] = [ln for ln in tee.text().splitlines()
+                           if "LM window" in ln or "growing" in ln
+                           or "re-running" in ln or "WARNING" in ln]
+    out["files"] = sorted(os.listdir(model)) if rank == 0 else []
+    out["totals"] = totals
+    return out
+
+
+def dp_phase(dev, n_gauss: int, height: int, width: int, tag: str,
+             kernels: list[dict], src: str, root: str, lm_ref: dict) -> None:
+    """Phase 13 (cell train-dp2-131k-1080p): (a) a one-rank NCCL group in
+    this process, (b) ``DP_WORLD`` spawned gloo ranks sharing the card,
+    phase 9's scene ``src`` for their command lines; both hold their LM
+    step to phase 7's (``lm_ref``). Adds each rank's launches to the
+    kernel entries in ``kernels``."""
+    import torch
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    t_phase = time.perf_counter()
+    dp_one_rank(dev, n_gauss, height, width, tag, lm_ref)
+    torch.cuda.empty_cache()
+    out_dir = os.path.join(root, "dp_ranks")
+    os.makedirs(out_dir)
+    torch.save({part: {k: v.cpu() for k, v in lm_ref[part].items()}
+                for part in ("state", "info")},
+               os.path.join(out_dir, "lm_ref.pt"))
+    ctx = mp.start_processes(
+        dp_rank, args=(DP_WORLD, free_port(), out_dir, dev.type, src, root,
+                       n_gauss, height, width),
+        nprocs=DP_WORLD, join=False, start_method="spawn")
+    deadline = time.monotonic() + DP_TIMEOUT
+    try:
+        while not ctx.join(timeout=1.0):
+            check(time.monotonic() < deadline,
+                  f"phase 13 ranks still running after {DP_TIMEOUT} s")
+    except ProcessException as e:
+        errs = [pathlib.Path(out_dir, f).read_text()
+                for f in sorted(os.listdir(out_dir)) if f.endswith(".err")]
+        raise RuntimeError("a phase 13 rank failed:\n"
+                           + "\n".join(errs)) from e
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ranks = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    r0 = ranks[0]
+    print(f"{tag} 13b gloo on CUDA tensors: {r0['gloo_cuda']}", flush=True)
+    for key in ("adam_ranks_equal", "lm_ranks_equal", "train_ranks_equal",
+                "lm_cli_ranks_equal"):
+        check(all(r[key] for r in ranks), f"phase 13 ranks differ: {key}")
+    print(f"{tag} 13b ranks bit for bit equal after the Adam step, the LM "
+          f"step, train.main and train_lm.main: True", flush=True)
+    print(f"{tag} 13b data-parallel Adam step (1 view per rank) vs "
+          f"train_step on the same {DP_WORLD} views: {r0['adam_err']}",
+          flush=True)
+    print(f"{tag} 13b data-parallel LM step (window padded to "
+          f"{DP_WORLD * -(-5 // DP_WORLD)}, {5 // DP_WORLD + 1} views and 25 "
+          f"val views per rank) vs lm_outer_step: best val loss "
+          f"{r0['lm_best'][0]:.6f} vs {r0['lm_best'][1]:.6f}; "
+          f"{r0['lm_err']}", flush=True)
+    for r in ranks:
+        med = statistics.median(r["dp_adam_ms"])
+        n_k, busy, wall = r["dp_adam_busy"]
+        reduce = ", ".join(f"{statistics.median(ms):.3f} ms for {b} bytes"
+                           for b, ms in r["allreduce"])
+        print(f"{tag} 13b rank {r['rank']}: Adam step median {med:.3f} ms "
+              f"(runs {[round(x, 3) for x in r['dp_adam_ms']]}); LM step "
+              f"{r['dp_lm_ms']:.1f} ms; gradient all-reduce {reduce} "
+              f"(median of {DP_STEPS}); one profiled Adam step: {n_k} CUDA "
+              f"kernels, device busy {busy:.3f} ms of {wall:.3f} ms wall "
+              f"({busy / wall:.3f})", flush=True)
+        print(f"{tag} 13b rank {r['rank']} launches: Adam step "
+              f"{r['adam_launches']}, LM step {r['lm_launches']}, "
+              f"train.main {r['train_launches']}, train_lm.main "
+              f"{r['lm_cli_launches']}; phase total {r['totals']}",
+              flush=True)
+    single = r0["single_adam_ms"]
+    print(f"{tag} 13b single process on the same card: train_step on "
+          f"{DP_WORLD} views median {statistics.median(single):.3f} ms (runs "
+          f"{[round(x, 3) for x in single]}); "
+          f"lm_outer_step {lm_ref['ms']:.1f} ms (phase 7's median)",
+          flush=True)
+    print(f"{tag} 13b train.main --mesh_data {DP_WORLD}: {DP_ITERS} "
+          f"iterations in {r0['train_s']:.1f} s, {r0['train_alive']} alive, "
+          f"step {r0['train_step']}; train_lm.main --mesh_data {DP_WORLD}: "
+          f"1 LM iteration in {r0['lm_cli_s']:.1f} s, lines "
+          f"{r0['lm_cli_lines']}; rank 0 wrote {r0['files']}", flush=True)
+    check(r0["train_step"] == DP_ITERS, "train.main's Adam step count")
+    check(f"chkpnt{DP_ITERS}.npz" in r0["files"] and "cfg_args" in r0["files"],
+          "train.main --mesh_data: rank 0's files")
+    check(any("LM window [" in ln for ln in r0["lm_cli_lines"]),
+          "train_lm.main --mesh_data: no LM step")
+    check(not any("WARNING" in ln for ln in r0["lm_cli_lines"]),
+          "train_lm.main --mesh_data: a degraded LM step")
+    for r in ranks:
+        for k in "ABCE":
+            check(r["totals"][k] > 0, f"rank {r['rank']} never launched "
+                                      f"kernel {k} on the data-parallel path")
+        check(r["adam_launches"]["A"] == 1 and r["adam_launches"]["C"] == 1
+              and r["lm_launches"]["E"] > 0,
+              f"rank {r['rank']} data-parallel launches")
+    for entry, k in zip(kernels, "ABCDE"):
+        for r in ranks:
+            n = r["totals"][k]
+            entry["launches_by_path"][f"data_parallel_rank{r['rank']}"] = n
+            entry["launches"] += n
+    print(f"{tag} phase 13 wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -25,7 +25,8 @@ from gslm_tpu_torch.device import resolve_device
 from gslm_tpu_torch.ops.knn import mean_sq_dist_3nn
 from gslm_tpu_torch.ops.sh import MAX_SH_DEGREE, num_sh_coeffs, rgb2sh
 from gslm_tpu_torch.struct import Struct
-from gslm_tpu_torch.utils.general import inverse_sigmoid
+from gslm_tpu_torch.utils.general import (covariance_from_scaling_rotation,
+                                          inverse_sigmoid, quat_normalize)
 
 # Raw values of dead (padding) slots: transparent, tiny, at the origin.
 DEAD_OPACITY_LOGIT = -12.0
@@ -43,12 +44,32 @@ class _GaussianFields:
     def capacity(self) -> int:
         return self.xyz.shape[0]
 
+    @property
+    def num_images(self) -> int:
+        return self.exposure.shape[0]
+
+    @property
+    def num_alive(self) -> torch.Tensor:
+        """The live slot count, a 0-d int32 tensor (no host sync)."""
+        return torch.sum(self.alive, dtype=torch.int32)
+
     def get_scaling(self):
         return torch.exp(self.scaling)
+
+    def get_opacity(self):
+        return torch.sigmoid(self.opacity)
+
+    def get_rotation(self):
+        return quat_normalize(self.rotation)
 
     def get_features(self):
         """(C, K+1, 3) concatenated SH coefficients (dc first)."""
         return torch.cat([self.features_dc, self.features_rest], dim=1)
+
+    def get_covariance(self, scaling_modifier: float = 1.0):
+        """(C, 6) upper triangle of each Gaussian's 3D covariance."""
+        return covariance_from_scaling_rotation(
+            scaling_modifier * self.get_scaling(), self.rotation)
 
     def groups(self) -> dict[str, torch.Tensor]:
         return {g: getattr(self, g).detach() for g in PARAM_GROUPS}

@@ -7,23 +7,22 @@ next to the points' norms, and through a matmul it would depend on the
 TF32 flags; here each squared distance is Σ(a − b)² in float32, exact to
 the rounding of three differences, three squares and two adds. The four
 smallest of a row include its own zero, which is dropped, as in JAX (a
-duplicate point keeps its zero)."""
+duplicate point keeps its zero). Each row is computed on its own, so the
+result does not depend on ``chunk``, the rows per distance block."""
 
 from __future__ import annotations
 
 import torch
 
-# elements of one (chunk, P) distance block: 2^27 float32 = 512 MiB, and
-# the loop holds two such blocks and topk's own workspace
-_BLOCK = 1 << 27
 
-
-def mean_sq_dist_3nn(points: torch.Tensor) -> torch.Tensor:
+def mean_sq_dist_3nn(points: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
     """points (P, 3) float32 → (P,) mean of the squared distances to the 3
-    nearest other points, on the points' device."""
+    nearest other points, on the points' device. A (chunk, P) block of
+    distances is live at a time (512 MiB at the default and P = 131,072),
+    with a second one and topk's workspace."""
     pts = points.to(torch.float32)
     p = pts.shape[0]
-    chunk = max(1, min(p, _BLOCK // max(p, 1)))
+    chunk = max(1, min(p, int(chunk)))
     cols = [pts[:, i].contiguous() for i in range(3)]
     out = torch.empty(p, dtype=torch.float32, device=pts.device)
     with torch.no_grad():

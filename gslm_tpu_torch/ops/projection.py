@@ -112,8 +112,12 @@ def preprocess(params: GaussianParams, camera: Camera, *,
                active_sh_degree: int, antialiasing: bool = False,
                scaling_modifier: float = 1.0,
                alive: torch.Tensor | None = None,
-               mean2d_offset: torch.Tensor | None = None) -> Splats2D:
+               mean2d_offset: torch.Tensor | None = None,
+               color_override: torch.Tensor | None = None) -> Splats2D:
     """Project all Gaussians into one camera.
+
+    ``color_override``: optional (P, 3) colours used in place of the SH
+    evaluation (still sanitized of non-finite values).
 
     ``mean2d_offset``: optional (P, 2) zeros added to the projected mean in
     NDC-half units, scaled by (0.5 W, 0.5 H): the gradient carrier of the
@@ -222,11 +226,15 @@ def preprocess(params: GaussianParams, camera: Camera, *,
     radius = torch.where(visible, radius_f, 0.0).to(torch.int32)
 
     # --- colour ---
-    dirs = xyz - camera.campos
-    dirs = dirs / torch.clamp(
-        torch.linalg.vector_norm(dirs, dim=-1, keepdim=True), min=1e-12)
-    color = torch.clamp(
-        eval_sh(active_sh_degree, params.get_features(), dirs) + 0.5, min=0.0)
+    if color_override is not None:
+        color = color_override
+    else:
+        dirs = xyz - camera.campos
+        dirs = dirs / torch.clamp(
+            torch.linalg.vector_norm(dirs, dim=-1, keepdim=True), min=1e-12)
+        color = torch.clamp(
+            eval_sh(active_sh_degree, params.get_features(), dirs) + 0.5,
+            min=0.0)
 
     # --- sanitize invisible rows so gathers stay NaN-free ---
     vis_f = visible.to(mean2d.dtype)[:, None]

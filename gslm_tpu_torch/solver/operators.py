@@ -18,12 +18,19 @@ of it (JAX's ``residual_fn_jvp``). Micro-batching over views
 and alive masks are applied to tangents and cotangents.
 
 Parameter-space vectors are ``{group: tensor}`` dicts, residual-space ones
-``ResidualState``s. Multi-device (``axis_name``, ``param_axis``) comes with
-the multi-device slice: a non-None value raises.
+``ResidualState``s.
+
+``axis_name="data"``: the residuals' views are split over the data axis's
+ranks (``parallel``) while the parameters are replicated. Residual-space
+dots, the loss and every Jᵀ·u (after ``torch.autograd.grad``, one flat
+buffer per collective) are summed over the ranks; parameter-space dots and
+J·v stay local. ``param_axis`` (model-sharded parameters) raises until the
+model axis is ported.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
@@ -32,6 +39,8 @@ from torch.utils.checkpoint import checkpoint
 
 from gslm_tpu_torch.models import gaussians as G
 from gslm_tpu_torch.models.gaussians import PARAM_GROUPS
+from gslm_tpu_torch.parallel.mesh import (MODEL_AXIS_MESSAGE, all_reduce,
+                                          all_reduce_dict, axis_group)
 from gslm_tpu_torch.solver.residuals import (ResidualState, res_dot,
                                              res_map, res_saxpy)
 
@@ -64,9 +73,14 @@ class LMOperators:
                  param_axis: str | None = None):
         """``residual_fn`` takes renderable parameters (``GaussianParams``
         or ``GaussianTensors``); ``params`` is the linearization point."""
-        if axis_name is not None or param_axis is not None:
+        if param_axis is not None:
             raise NotImplementedError(
-                "axis_name / param_axis: multi-device LM is not ported yet")
+                f"param_axis={param_axis!r}: {MODEL_AXIS_MESSAGE}")
+        self._group = None if axis_name is None else axis_group(axis_name)
+        if axis_name is not None:
+            # bind the collective-aware dot (the static one stays for the
+            # single process)
+            self.dot = functools.partial(self._dot_axis, self._group)
         self.residual_fn = residual_fn
         self.params = params
         self._primal = params.groups()
@@ -111,6 +125,9 @@ class LMOperators:
                                     allow_unused=True)
         g = {name: torch.zeros_like(leaves[name]) if d is None else d
              for name, d in zip(PARAM_GROUPS, found)}
+        if self._group is not None:
+            # the ranks' views differ: sum their partials
+            g = all_reduce_dict(g, "sum", self._group)
         return self._mask(g)
 
     def get_initial_solution(self) -> dict:
@@ -118,6 +135,9 @@ class LMOperators:
 
     @property
     def loss_scalar(self) -> torch.Tensor:
+        if self._group is not None:
+            return all_reduce([self.residual.loss_scalar], "sum",
+                              self._group)[0]
         return self.residual.loss_scalar
 
     # -- generalized vector algebra, dispatching on space -----------------
@@ -127,6 +147,13 @@ class LMOperators:
             assert damp == 1.0 or not isinstance(damp, dict)
             return res_dot(a, b) * (1.0 if damp == 1.0 else damp)
         return G.vdot(a, b, damp)
+
+    @staticmethod
+    def _dot_axis(group, a, b, damp=1.0):
+        d = LMOperators.dot(a, b, damp)
+        if isinstance(a, ResidualState):
+            return all_reduce([d], "sum", group)[0]
+        return d                       # replicated parameters: no collective
 
     @staticmethod
     def saxpy(alpha, x, y):

@@ -19,6 +19,14 @@ densify and opacity-reset schedule, test / save / checkpoint iterations,
 window. Its own draws (split noise, random backgrounds) come from one
 ``torch.Generator`` seeded 0, which cannot repeat JAX's PRNG.
 
+``--mesh_data N`` trains over N ranks (``parallel``; launched by
+``torchrun --nproc_per_node N``, or in a process group the caller started):
+every rank draws the same window of N views (a multiple of N in
+``--sgd_batch`` mode), renders its block of it and steps through
+``parallel.dp_apply_update``; the state is replicated, density events run
+on every rank from generators seeded alike, and only rank 0 prints and
+writes files (the others wait at a barrier where it writes).
+
 Usage: python -m gslm_tpu_torch.train -s <dataset> -m <output> [flags]
 (on the card; ``--platform cpu`` runs on the CPU)
 """
@@ -39,7 +47,7 @@ from gslm_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
 from gslm_tpu_torch.config import OptimizationParams
 from gslm_tpu_torch.densify import (add_densification_stats,
                                     densify_and_prune, reset_opacity)
-from gslm_tpu_torch.device import platform_device
+from gslm_tpu_torch.device import platform_backend, platform_device
 from gslm_tpu_torch.models.cameras import CameraBatch, batch_from_metas
 from gslm_tpu_torch.models.gaussians import (PARAM_GROUPS, GaussianAux,
                                              GaussianParams)
@@ -47,6 +55,9 @@ from gslm_tpu_torch.models.scene import Scene
 from gslm_tpu_torch.optim import (AdamState, adam_step, group_learning_rates,
                                   init_adam)
 from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig
+from gslm_tpu_torch.parallel.mesh import (all_reduce, barrier, make_mesh,
+                                          maybe_initialize_distributed,
+                                          shard_cameras, shard_state)
 from gslm_tpu_torch.renderer import batch_render
 from gslm_tpu_torch.solver.residuals import scalar_training_loss
 from gslm_tpu_torch.utils.general import get_expon_lr_func, safe_state
@@ -100,32 +111,55 @@ def loss_and_grads(params: GaussianParams, cam: CameraBatch,
             dict(zip(PARAM_GROUPS, grads[:-1])), grads[-1])
 
 
-def apply_update(params: GaussianParams, aux: GaussianAux,
-                 opt_state: AdamState, cam: CameraBatch, step: int,
-                 spatial_lr_scale: float, found, *, opt: OptimizationParams,
-                 sparse_adam: bool, update_stats: bool):
-    """The rest of one Adam iteration, given ``found``, the output of
-    ``loss_and_grads``: the densification statistics, then Adam. Updates
-    ``params`` and ``opt_state`` in place; returns ``(params, aux,
-    opt_state, metrics)`` with the metrics as 0-d tensors (no host sync)."""
+def step_summary(cam: CameraBatch, found):
+    """What an Adam update takes from ``found`` (``loss_and_grads``'s
+    output) on ``cam``'s views: ``(grads, stat_grad, radii, metrics)``,
+    ``stat_grad`` (P, 2) the sum of the per-view screen gradients (the
+    mean-over-views 1/B of ``g_m2d`` undone, so the statistics do not
+    depend on the batch size), ``radii`` (P,) the max over the views and
+    the metrics as 0-d tensors (no host sync). The data-parallel step
+    reduces these over the ranks."""
     loss, info, depth_l1, grads, g_m2d = found
     out = info["render"]
-    radii = torch.amax(out.radii, dim=0)             # (P,) over batch views
-    if update_stats:
-        # stats accumulate the sum of per-view screen gradients: undo the
-        # mean-over-views 1/B so magnitudes don't depend on batch size
-        aux = add_densification_stats(aux, g_m2d * cam.batch_size, radii)
-
-    lrs = group_learning_rates(opt, step, spatial_lr_scale)
-    visible = (radii > 0) if sparse_adam else None
-    params, opt_state = adam_step(params, grads, opt_state, lrs, visible)
-
     render = out.render.detach()
     metrics = {"loss": loss, "l1": torch.mean(info["l1"].detach()),
                "depth_l1": depth_l1,
                "psnr": torch.mean(psnr(render, cam.gt_image)),
                "overflow": torch.amax(out.overflow),
                "max_tile_load": torch.amax(out.max_tile_load)}
+    return grads, g_m2d * cam.batch_size, torch.amax(out.radii, dim=0), \
+        metrics
+
+
+def update_state(params: GaussianParams, aux: GaussianAux,
+                 opt_state: AdamState, step: int, spatial_lr_scale: float,
+                 grads: dict, stat_grad: torch.Tensor, radii: torch.Tensor, *,
+                 opt: OptimizationParams, sparse_adam: bool,
+                 update_stats: bool):
+    """The densification statistics, then Adam, from ``step_summary``'s
+    parts. Updates ``params`` and ``opt_state`` in place; returns
+    ``(params, aux, opt_state)``."""
+    if update_stats:
+        aux = add_densification_stats(aux, stat_grad, radii)
+    lrs = group_learning_rates(opt, step, spatial_lr_scale)
+    visible = (radii > 0) if sparse_adam else None
+    params, opt_state = adam_step(params, grads, opt_state, lrs, visible)
+    return params, aux, opt_state
+
+
+def apply_update(params: GaussianParams, aux: GaussianAux,
+                 opt_state: AdamState, cam: CameraBatch, step: int,
+                 spatial_lr_scale: float, found, *, opt: OptimizationParams,
+                 sparse_adam: bool, update_stats: bool):
+    """The rest of one Adam iteration, given ``found``, the output of
+    ``loss_and_grads``: ``step_summary`` then ``update_state``. Updates
+    ``params`` and ``opt_state`` in place; returns ``(params, aux,
+    opt_state, metrics)`` with the metrics as 0-d tensors (no host
+    sync)."""
+    grads, stat_grad, radii, metrics = step_summary(cam, found)
+    params, aux, opt_state = update_state(
+        params, aux, opt_state, step, spatial_lr_scale, grads, stat_grad,
+        radii, opt=opt, sparse_adam=sparse_adam, update_stats=update_stats)
     return params, aux, opt_state, metrics
 
 
@@ -174,26 +208,40 @@ def training(args, *, lm_phase_hook=None):
     ``(params, aux, opt_state, info, rcfg)``: ``info["best_val_loss"]``
     feeds the progress line, and the returned ``rcfg`` (grown by the
     hook's overflow probe) is kept."""
-    safe_state(getattr(args, "quiet", False))
-    dev = platform_device(getattr(args, "platform", ""))
-    if getattr(args, "detect_anomaly", False):
-        from gslm_tpu_torch.utils.profiling import enable_nan_debugging
-        enable_nan_debugging()
+    platform = getattr(args, "platform", "")
     model = cfg_mod.extract(args, cfg_mod.ModelParams)
     opt = cfg_mod.extract(args, cfg_mod.OptimizationParams)
     pipe = cfg_mod.extract(args, cfg_mod.PipelineParams)
     tpu = cfg_mod.extract(args, cfg_mod.TpuParams)
+    # the data axis: one process per rank (a mesh that must fill the world)
+    dist_up = maybe_initialize_distributed(platform_backend(platform))
+    mesh = None
+    if tpu.mesh_data * tpu.mesh_model > 1 or (
+            dist_up and torch.distributed.get_world_size() > 1):
+        mesh = make_mesh(tpu.mesh_data, tpu.mesh_model)
+    main_rank = mesh is None or mesh.is_main
+    safe_state(getattr(args, "quiet", False) or not main_rank)
+    dev = platform_device(platform)
+    if mesh is not None:
+        print(f"Data-parallel training over mesh {mesh.shape} "
+              f"({tpu.mesh_data} views/step)")
+    if getattr(args, "detect_anomaly", False):
+        from gslm_tpu_torch.utils.profiling import enable_nan_debugging
+        enable_nan_debugging()
 
     # JAX seeds the global `random` in safe_state, shuffles the cameras
     # with it in Scene, then the view order: one Random(0) does the same
     order_rng = random.Random(0)
-    scene = Scene(model.source_path, model.model_path, images=model.images,
+    # the other ranks' Scene writes nothing (no model path)
+    scene = Scene(model.source_path, model.model_path if main_rank else "",
+                  images=model.images,
                   depths=model.depths, resolution=model.resolution,
                   white_background=model.white_background,
                   eval_split=model.eval, train_test_exp=model.train_test_exp,
                   sh_degree=model.sh_degree, capacity=tpu.capacity or None,
                   device=dev, rng=order_rng)
-    cfg_mod.save_cfg_args(model.model_path, args)
+    if main_rank:
+        cfg_mod.save_cfg_args(model.model_path, args)
 
     params, aux = scene.params, scene.aux
     opt_state = init_adam(params)
@@ -203,6 +251,10 @@ def training(args, *, lm_phase_hook=None):
         params, aux, opt_state, first_iter, spatial_lr_scale = \
             load_checkpoint(args.start_checkpoint, device=dev)
         print(f"Restored checkpoint at iteration {first_iter}")
+    if mesh is not None:
+        # every rank starts from rank 0's state, bit for bit
+        shard_state(mesh, params, aux, opt_state)
+        barrier(mesh)
 
     train_metas = scene.get_train_cameras()
     all_train = batch_from_metas(train_metas, device=dev)
@@ -223,11 +275,19 @@ def training(args, *, lm_phase_hook=None):
                                    opt.depth_l1_weight_final,
                                    max_steps=opt.iterations)
     sparse = opt.optimizer_type == "sparse_adam"
+    if mesh is None:
+        update = apply_update
+    else:
+        from gslm_tpu_torch.parallel.steps import dp_apply_update
+
+        def update(*a, **k):
+            return dp_apply_update(mesh, *a, **k)
 
     writer = None
     try:
-        from torch.utils.tensorboard import SummaryWriter
-        writer = SummaryWriter(model.model_path)
+        if main_rank:
+            from torch.utils.tensorboard import SummaryWriter
+            writer = SummaryWriter(model.model_path)
     except Exception:
         print("Tensorboard not available: not logging progress")
 
@@ -238,7 +298,7 @@ def training(args, *, lm_phase_hook=None):
     ckpt_iterations = set(getattr(args, "checkpoint_iterations", None) or [])
 
     viewer = None
-    if not getattr(args, "disable_viewer", False):
+    if main_rank and not getattr(args, "disable_viewer", False):
         try:
             from gslm_tpu_torch.viewer import ViewerServer
             viewer = ViewerServer(getattr(args, "ip", "127.0.0.1"),
@@ -254,7 +314,7 @@ def training(args, *, lm_phase_hook=None):
     jvp_start = getattr(args, "jvp_start", opt.iterations + 1)
 
     iter_timer = IterTimer()
-    profile_dir = getattr(args, "profile_dir", "")
+    profile_dir = getattr(args, "profile_dir", "") if main_rank else ""
     profile_from = getattr(args, "profile_from", 50)
     profile_until = profile_from + getattr(args, "profile_steps", 10)
     profiler = contextlib.ExitStack()
@@ -306,12 +366,17 @@ def training(args, *, lm_phase_hook=None):
                                       float(lm_info["best_alpha"]), iteration)
                     writer.add_scalar("iter_time", iter_ms, iteration)
             else:
-                if getattr(args, "sgd_batch", False):
-                    # a strided multi-view window (train_sgd)
+                if getattr(args, "sgd_batch", False) or mesh is not None:
+                    # a strided multi-view window (train_sgd), or one view
+                    # per rank: the ranks draw the same window
                     from gslm_tpu_torch.train_sgd import select_window
-                    win = select_window(len(train_metas),
-                                        getattr(args, "num_images", 5),
-                                        np_rng)
+                    n_views = (getattr(args, "num_images", 5)
+                               if getattr(args, "sgd_batch", False)
+                               else tpu.mesh_data)
+                    if mesh is not None:
+                        n_views = max(n_views, tpu.mesh_data)
+                        n_views -= n_views % tpu.mesh_data
+                    win = select_window(len(train_metas), n_views, np_rng)
                     cam = all_train.take(win)
                     # per-view depth gating: zero the unreliable views'
                     # depth masks instead of gating the window on win[0]
@@ -322,6 +387,8 @@ def training(args, *, lm_phase_hook=None):
                         cam = cam.replace(depth_mask=cam.depth_mask * torch
                                           .tensor(rel, device=dev)[:, None,
                                                                    None, None])
+                    if mesh is not None:
+                        cam = shard_cameras(mesh, cam)   # this rank's views
                 else:
                     if not indices:
                         indices = list(range(len(train_metas)))
@@ -346,9 +413,13 @@ def training(args, *, lm_phase_hook=None):
                         params, cam, bg, dw, rcfg=rcfg, opt=opt,
                         active_sh_degree=active_sh,
                         use_exp=model.train_test_exp)
-                    clean = int(torch.amax(found[1]["render"].overflow)) == 0
+                    over = torch.amax(found[1]["render"].overflow)
+                    if mesh is not None:
+                        # the same decision on every rank
+                        over = all_reduce([over], "max", mesh.group)[0]
+                    clean = int(over) == 0
                     if clean or attempt == 2:
-                        params, aux, opt_state, metrics = apply_update(
+                        params, aux, opt_state, metrics = update(
                             params, aux, opt_state, cam, iteration,
                             spatial_lr_scale, found, opt=opt,
                             sparse_adam=sparse, update_stats=in_densify)
@@ -399,7 +470,7 @@ def training(args, *, lm_phase_hook=None):
                         and iteration == opt.densify_from_iter)):
                 params, opt_state = reset_opacity(params, opt_state)
 
-            if iteration in test_iterations:
+            if iteration in test_iterations and main_rank:
                 stats = {"train": evaluate(
                     params, aux, all_train.take(slice(0, min(5, len(
                         train_metas)))), bg_default, rcfg, active_sh,
@@ -420,12 +491,16 @@ def training(args, *, lm_phase_hook=None):
                                    iteration)
             if iteration in save_iterations:
                 print(f"\n[ITER {iteration}] Saving Gaussians")
-                scene.save(iteration, params)
+                if main_rank:
+                    scene.save(iteration, params)
+                barrier(mesh)
             if iteration in ckpt_iterations:
-                save_checkpoint(os.path.join(model.model_path,
-                                             f"chkpnt{iteration}.npz"),
-                                params, aux, opt_state, iteration,
-                                spatial_lr_scale)
+                if main_rank:
+                    save_checkpoint(os.path.join(model.model_path,
+                                                 f"chkpnt{iteration}.npz"),
+                                    params, aux, opt_state, iteration,
+                                    spatial_lr_scale)
+                barrier(mesh)
     finally:
         profiler.close()
         if viewer is not None:

@@ -9,8 +9,10 @@ of validation views, each scored by a chunked forward render. ``lm_phase``
 is its host driver: it picks the window and the validation views, probes
 the record capacities before and after the step and grows them on
 overflow. ``main`` is the two-phase command line: ``train.training`` runs
-Adam until ``--jvp_start``, then ``lm_phase`` through its LM hook.
-Multi-device (``mesh``) comes with the multi-device slice.
+Adam until ``--jvp_start``, then ``lm_phase`` through its LM hook. With a
+mesh (``--mesh_data N`` over N ranks) the window and the validation views
+are split over the ranks and the step's sums are all-reduced
+(``axis_name="data"``).
 
 Usage: python -m gslm_tpu_torch.train_lm -s <dataset> -m <output> [flags]
 """
@@ -27,6 +29,7 @@ from gslm_tpu_torch.models import gaussians as G
 from gslm_tpu_torch.models.cameras import CameraBatch
 from gslm_tpu_torch.models.gaussians import GaussianParams
 from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig
+from gslm_tpu_torch.parallel.mesh import all_reduce, axis_group
 from gslm_tpu_torch.renderer import overflow_probe
 from gslm_tpu_torch.solver.cg import cgls_damped_unrolled
 from gslm_tpu_torch.solver.operators import LMOperators, chunked_residual_fn
@@ -68,10 +71,14 @@ def lm_outer_step(params: GaussianParams, alive: torch.Tensor | None,
     A window of more than ``lm.micro_batch`` views renders in micro-batch
     chunks (pad it to a chunk multiple and zero the pads with
     ``win_valid``, (B,) f32; ``val_valid`` likewise for the validation
-    views)."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name: multi-device LM is not ported yet")
+    views). The validation views render in chunks of ``lm.micro_batch``
+    where it divides them, even when the window falls back to one render.
+
+    ``axis_name="data"``: ``window`` and ``val`` are this rank's slices of
+    views split over the data axis; residual dots, Jᵀ·u partials and the
+    losses are summed over the ranks (``LMOperators``), so every rank
+    returns the same step."""
+    group = None if axis_name is None else axis_group(axis_name)
     # the LM residual has no depth term (reference training_loss.py:57)
     rcfg = rcfg.replace(depth_grad=False)
 
@@ -85,15 +92,14 @@ def lm_outer_step(params: GaussianParams, alive: torch.Tensor | None,
                                    alive=alive)
         return f
 
-    nwin = window.batch_size
-    mb = lm.micro_batch if lm.micro_batch > 0 else nwin
-    if nwin % mb != 0:
+    nwin, nval = window.batch_size, val.batch_size
+    mb, val_mb = micro_batches(lm, nwin, nval)
+    if lm.micro_batch > 0 and nwin % lm.micro_batch != 0:
         warnings.warn(
             f"lm_outer_step: window of {nwin} views is not a multiple of "
-            f"micro_batch={mb}; falling back to ONE whole-window render "
-            "(peak memory scales with the window; pad to a chunk multiple "
-            "with win_valid weights as lm_phase does)", stacklevel=2)
-        mb = nwin
+            f"micro_batch={lm.micro_batch}; falling back to ONE whole-window "
+            "render (peak memory scales with the window; pad to a chunk "
+            "multiple with win_valid weights as lm_phase does)", stacklevel=2)
     if nwin > mb:
         residual_fn = chunked_residual_fn(res_of(rcfg), window, mb,
                                           view_valid=win_valid)
@@ -104,10 +110,6 @@ def lm_outer_step(params: GaussianParams, alive: torch.Tensor | None,
             lambda x: x * win_valid[:, None, None, None],
             res_of(rcfg)(p, window))
 
-    nval = val.batch_size
-    val_mb = mb if nval > mb else nval
-    if nval % val_mb != 0:
-        val_mb = nval      # direct callers with odd sizes: one chunk
     nch_total = nval // val_mb
 
     def make_val_loss(valb: CameraBatch, cfg: RasterConfig):
@@ -126,6 +128,8 @@ def lm_outer_step(params: GaussianParams, alive: torch.Tensor | None,
                 w = wts[c][:, None, None, None]
                 r = res_map(lambda x: x * w, res(p, cams))
                 total = total + r.loss_scalar
+            if group is not None:
+                total = all_reduce([total], "sum", group)[0]
             return total
 
         return loss_chunks
@@ -133,7 +137,8 @@ def lm_outer_step(params: GaussianParams, alive: torch.Tensor | None,
     val_loss = make_val_loss(val, rcfg)
 
     group_mask = G.param_group_mask(mask_xyz=lm.mask_xyz)
-    ops = LMOperators(residual_fn, params, group_mask=group_mask, alive=alive)
+    ops = LMOperators(residual_fn, params, group_mask=group_mask, alive=alive,
+                      axis_name=axis_name)
     start_loss = ops.loss_scalar
 
     b = res_map(torch.neg, ops.residual)             # b = -r
@@ -196,6 +201,20 @@ def lm_outer_step(params: GaussianParams, alive: torch.Tensor | None,
     return new_params, info
 
 
+def micro_batches(lm: cfg_mod.LMParams, nwin: int, nval: int
+                  ) -> tuple[int, int]:
+    """The views per render of ``lm_outer_step``'s window and of its
+    validation views: ``lm.micro_batch`` (0: the window's size) where it
+    divides them, else one render of all of them."""
+    mb = val_chunk = lm.micro_batch if lm.micro_batch > 0 else nwin
+    if nwin % mb != 0:
+        mb = nwin
+    val_mb = val_chunk if nval > val_chunk else nval
+    if nval % val_mb != 0:
+        val_mb = nval      # direct callers with odd sizes: one chunk
+    return mb, val_mb
+
+
 def select_window(num_cams: int, num_images: int, rng: np.random.Generator,
                   stride: int = 1) -> list[int]:
     """Contiguous stride-1 window of views (train_jvp.py:193-206)."""
@@ -224,22 +243,31 @@ def lm_phase(scene, params: GaussianParams, aux, all_train: CameraBatch,
     from the pre-step parameters at doubled capacities (at most 4 tries).
     ``aux`` carries the ``alive`` mask (a ``GaussianAux`` of the JAX
     package's or anything with ``.alive``; None takes ``params.alive``).
-    ``scene`` is unused, as in JAX."""
-    if mesh is not None:
-        raise NotImplementedError("mesh: multi-device LM is not ported yet")
+    ``scene`` is unused, as in JAX.
+
+    With a ``mesh`` (``parallel.make_mesh``) every rank draws the same
+    window from ``rng``; the window and the val views are padded to a
+    multiple of the data axis (times ``micro_batch`` above it) with
+    zero-weight views and each rank steps on its contiguous slice
+    (``make_dp_lm_step``). Each rank probes its own render units and the
+    ranks take the max of their overflow flags, so every rank makes the
+    same grow decisions."""
     alive = params.alive if aux is None else aux.alive
     n = all_train.batch_size
     win = select_window(n, lm.num_images, rng)
     vidx = val_indices(n, lm)
     dev = bg.device
+    n_data = 1 if mesh is None else mesh.shape["data"]
 
     def pad_to_chunk(idx):
-        """Pad a view-index list to a micro_batch multiple; the pads repeat
-        the first view and carry weight 0."""
+        """Pad a view-index list to a micro_batch multiple, and on a mesh
+        to a data-axis multiple of that, so every rank's slice chunks
+        evenly; the pads repeat the first view and carry weight 0."""
         mb = lm.micro_batch
-        if not (mb > 0 and len(idx) > mb):
+        multiple = (mb if mb > 0 and len(idx) > mb else 1) * n_data
+        if multiple <= 1:
             return idx, None
-        pad = (-len(idx)) % mb
+        pad = (-len(idx)) % multiple
         w = np.ones(len(idx) + pad, np.float32)
         if pad:
             w[len(idx):] = 0.0
@@ -250,33 +278,43 @@ def lm_phase(scene, params: GaussianParams, aux, all_train: CameraBatch,
     vidx, val_valid = pad_to_chunk(vidx)
     window = all_train.take(win)
     val = all_train.take(vidx)
+    mine = [window, val]                 # the views this rank renders
+    if mesh is not None:
+        from gslm_tpu_torch.parallel.mesh import shard_cameras
+        from gslm_tpu_torch.parallel.steps import make_dp_lm_step
+        mine = [shard_cameras(mesh, c) for c in mine]
 
     def run_step(p, cfg):
+        kw = dict(rcfg=cfg, lm=lm, active_sh_degree=active_sh_degree,
+                  use_exp=use_exp, lambda_dssim=lambda_dssim)
+        if mesh is not None:
+            return make_dp_lm_step(mesh, **kw)(p, alive, window, val, bg,
+                                                win_valid, val_valid)
         return lm_outer_step(p, alive, window, val, bg, win_valid, val_valid,
-                             rcfg=cfg, lm=lm,
-                             active_sh_degree=active_sh_degree,
-                             use_exp=use_exp, lambda_dssim=lambda_dssim)
+                             **kw)
 
-    def render_groups(n_views: int) -> list[list[int]]:
-        """View-index groups that share one record stream (one render),
-        as lm_outer_step chunks them."""
-        mb = lm.micro_batch
-        step = mb if 0 < mb < n_views and n_views % mb == 0 else n_views
-        return [list(range(c, c + step)) for c in range(0, n_views, step)]
+    # the render units of this rank's views, as lm_outer_step chunks them
+    units = [
+        [list(range(c, c + step)) for c in range(0, cams.batch_size, step)]
+        for cams, step in zip(mine, micro_batches(
+            lm, mine[0].batch_size, mine[1].batch_size))]
 
     def probe(p, cfg) -> bool:
-        """True iff any render unit of the window or of the val views would
-        overflow cfg's record capacities."""
+        """True iff any render unit of the window or of the val views (of
+        any rank) would overflow cfg's record capacities."""
         over = False
-        for cams, nv in ((window, len(win)), (val, len(vidx))):
+        for cams, groups in zip(mine, units):
             out = overflow_probe(p, cams, config=cfg,
                                  active_sh_degree=active_sh_degree,
                                  alive=alive, per_view=True)
             na = out["n_aabb"].cpu().numpy()
             nl = out["n_live"].cpu().numpy()
-            for grp in render_groups(nv):
+            for grp in groups:
                 over |= (int(nl[grp].sum()) > cfg.eff_capacity()
                          or int(na[grp].sum()) > cfg.dup_capacity)
+        if mesh is not None:
+            flag = torch.tensor([int(over)], device=dev)
+            over = bool(all_reduce([flag], "max", mesh.group)[0])
         return over
 
     params0 = params
@@ -319,14 +357,26 @@ def main(argv=None):
     lm = cfg_mod.extract(args, cfg_mod.LMParams)
     model = cfg_mod.extract(args, cfg_mod.ModelParams)
     opt = cfg_mod.extract(args, cfg_mod.OptimizationParams)
+    tpu = cfg_mod.extract(args, cfg_mod.TpuParams)
     rng = np.random.default_rng(0)
+
+    mesh = None
+    if tpu.mesh_data * tpu.mesh_model > 1:
+        # training starts the same group (or passes through) and builds
+        # the same mesh; window and val sizes need not divide mesh_data:
+        # lm_phase pads them with zero-weight views
+        from gslm_tpu_torch.device import platform_backend
+        from gslm_tpu_torch.parallel import (make_mesh,
+                                             maybe_initialize_distributed)
+        maybe_initialize_distributed(platform_backend(args.platform))
+        mesh = make_mesh(tpu.mesh_data, tpu.mesh_model)
 
     def hook(scene, params, aux, opt_state, iteration, all_train, rcfg, bg):
         active_sh = min(iteration // 1000, params.sh_degree)
         params, info, rcfg = lm_phase(
             scene, params, None, all_train, rcfg, bg, lm, iteration, rng,
             model.train_test_exp, opt.lambda_dssim, active_sh,
-            verbose=not getattr(args, "quiet", False))
+            verbose=not getattr(args, "quiet", False), mesh=mesh)
         return params, aux, opt_state, info, rcfg
 
     print("Optimizing " + args.model_path + f" (LM from {lm.jvp_start})")

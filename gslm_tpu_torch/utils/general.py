@@ -1,5 +1,6 @@
 """General helpers (gslm_tpu/utils/general.py): the opacity activation's
-inverse, quaternion algebra, the learning-rate schedules and
+inverse, quaternion algebra, the covariance from scaling and rotation,
+the learning-rate schedules and
 ``safe_state``, the trainer's stdout and host-seed set-up."""
 
 from __future__ import annotations
@@ -74,6 +75,24 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
         torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
                      1 - 2 * (x * x + y * y)], -1),
     ], dim=-2)
+
+
+def build_scaling_rotation(scale: torch.Tensor,
+                           q: torch.Tensor) -> torch.Tensor:
+    """L = R(q) diag(scale): (..., 3) x (..., 4) → (..., 3, 3); the
+    covariance is Σ = L Lᵀ (reference general_utils.py:102-111)."""
+    return quat_to_rotmat(quat_normalize(q)) * scale[..., None, :]
+
+
+def covariance_from_scaling_rotation(scale: torch.Tensor,
+                                     q: torch.Tensor) -> torch.Tensor:
+    """(..., 6) upper triangle (xx, xy, xz, yy, yz, zz) of Σ = L Lᵀ
+    (reference gaussian_model.py:36-41 and strip_symmetric)."""
+    L = build_scaling_rotation(scale, q)
+    cov = L @ L.transpose(-1, -2)
+    return torch.stack([cov[..., 0, 0], cov[..., 0, 1], cov[..., 0, 2],
+                        cov[..., 1, 1], cov[..., 1, 2], cov[..., 2, 2]],
+                       dim=-1)
 
 
 def expon_lr(step, lr_init: float, lr_final: float, lr_delay_steps: int = 0,

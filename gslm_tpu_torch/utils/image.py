@@ -15,3 +15,11 @@ def mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def psnr(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     m = torch.mean((a - b) ** 2, dim=(-3, -2, -1))
     return 20.0 * torch.log10(1.0 / torch.sqrt(m))
+
+
+def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.abs(a - b))
+
+
+def l1_loss_per_pixel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.abs(a - b)

@@ -16,6 +16,7 @@ from gslm_tpu_torch import config as cfg_mod
 from gslm_tpu_torch import train as t_train
 from gslm_tpu_torch.eval import metrics as t_metrics
 from gslm_tpu_torch.eval import render_sets as t_render_sets
+from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig
 
 GROUPS = ("model", "pipeline", "opt", "lm", "tpu")
 
@@ -111,7 +112,7 @@ def test_get_combined_args_merges_equally(tmp_path, monkeypatch, form):
 @pytest.mark.parametrize("field,value", [
     ("max_per_tile", 128), ("tile_chunk", 8), ("raster_pack", 8),
     ("mp_route_capacity", 1024), ("cache_dir", "/tmp/xla"),
-    ("mesh_data", 2), ("mesh_model", 2), ("raster_impl", "pallas"),
+    ("mesh_model", 2), ("raster_impl", "pallas"),
     ("raster_impl", "tiled")])
 def test_tpu_only_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match=field.split("_")[0]
@@ -120,6 +121,18 @@ def test_tpu_only_fields_raise(field, value):
     # accepted by JAX, and the defaults by both
     j_cfg.TpuParams(**{field: value})
     cfg_mod.TpuParams()
+
+
+def test_mesh_data_is_read():
+    """The data axis is ported: ``mesh_data`` is accepted; the model axis
+    and its exchange capacity raise, naming the item that brings them."""
+    assert cfg_mod.TpuParams(mesh_data=2).mesh_data == 2
+    for kw in ({"mesh_data": 2, "mesh_model": 2}, {"mesh_model": 4},
+               {"mp_route_capacity": 256}):
+        with pytest.raises(NotImplementedError, match="queue 1, item 2"):
+            cfg_mod.TpuParams(**kw)
+    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
+        RasterConfig(mp_route_capacity=256)
 
 
 def test_ignored_fields_are_accepted():

@@ -46,7 +46,8 @@ and the CPU's float32 exp and sigmoid may differ in the last bit). Kernel
 C at depth_grad=True on a depth L1's cotangent (invdepth row nonzero)
 against its plain version at the bound above; LPIPS on the card within
 1e-4 relative of the CPU's, TF32 on in the caller; the quick parity matrix
-(utils/paritycheck.py) all ok."""
+(utils/paritycheck.py) all ok. A one-rank NCCL group: the data-parallel
+Adam step (parallel/steps.py) equal to ``train_step`` bit for bit."""
 
 import numpy as np
 import pytest
@@ -806,3 +807,47 @@ def test_parity_matrix_quick_on_card(cuda):
     assert list(res["variants"]) == list(VARIANTS)
     bad = {k: v for k, v in res["variants"].items() if not v["ok"]}
     assert res["ok"] and not bad, bad
+
+
+@pytest.mark.cuda
+def test_dp_train_step_one_nccl_rank_equals_train_step(cuda):
+    """A one-rank NCCL group: ``make_dp_train_step`` (its collectives run,
+    on one rank the identity) equals ``train_step`` bit for bit on the
+    small scene, every parameter, moment and statistic and the metrics."""
+    import socket
+
+    import torch.distributed as dist
+
+    from gslm_tpu_torch.parallel import make_dp_train_step, make_mesh
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+        assert mesh.shape == {"data": 1, "model": 1}
+        assert dist.get_backend(mesh.group) == "nccl"
+        kw = dict(rcfg=RasterConfig(), opt=OptimizationParams(),
+                  active_sh_degree=3, use_exp=False, sparse_adam=False,
+                  update_stats=True)
+        cams = ring_camera_batch(1, 72, 96, device=cuda)
+        bg = torch.zeros(3, device=cuda)
+        runs = []
+        for step in (lambda *a: train_step(*a, **kw),
+                     make_dp_train_step(mesh, **kw)):
+            params = random_gaussians(np.random.default_rng(3), n=2048,
+                                      spread=1.5, device=cuda)
+            aux = GaussianAux.zeros(2048, device=cuda)
+            opt_state = init_adam(params)
+            _, _, _, metrics = step(params, aux, opt_state, cams, bg, 100,
+                                    1.0, 0.0)
+            runs.append([getattr(params, g) for g in PARAM_GROUPS]
+                        + [getattr(aux, f) for f in ("max_radii2d",
+                                                     "xyz_gradient_accum",
+                                                     "denom")]
+                        + list(opt_state.mu.values())
+                        + list(opt_state.nu.values()) + list(metrics.values()))
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+    finally:
+        dist.destroy_process_group()

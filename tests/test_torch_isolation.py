@@ -1,7 +1,9 @@
 """gslm_tpu_torch stands alone: it imports neither JAX nor gslm_tpu, nor,
 when its modules are imported, Pillow, OpenCV, torchvision, tqdm or
-TensorBoard (absent where the card is); and its entry points never drift
-onto the CPU unasked."""
+TensorBoard (absent where the card is); every module counts, the
+multi-rank ``parallel`` package included; and its entry points never
+drift onto the CPU unasked (under a process group:
+tests/test_torch_parallel.py::test_mesh_shapes)."""
 
 import os
 import subprocess
@@ -35,6 +37,8 @@ bad = sorted(m for m in sys.modules
                  or m.startswith("torch.utils.tensorboard")))
 print(len(names), bad)
 assert not bad, bad
+assert {"gslm_tpu_torch.parallel", "gslm_tpu_torch.parallel.mesh",
+        "gslm_tpu_torch.parallel.steps"} <= set(names), names
 """
 
 
@@ -44,7 +48,7 @@ def test_port_imports_no_jax_and_no_gslm_tpu():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split()[0])
-    assert n_modules >= 53
+    assert n_modules >= 56
 
 
 def test_entry_points_need_a_device_without_cuda(monkeypatch):
