@@ -217,7 +217,28 @@ failed phase exits non-zero:
    each; each rank launched A, B, C and E. Prints the steps' times per
    rank against the single process, the gradient all-reduce's time and
    bytes, each rank's busy share and launches.
-14. a ``{"kernels": [...]}`` line, then the last line
+14. the model axis over ranks (cell train-mp2-m1-1080p): two gloo ranks
+   spawned on the one card as a (1 data, 2 model) mesh, each holding
+   524,288 of the million-Gaussian scene's rows (phase 8's scene, bucket
+   1), the model axis's collectives on CUDA tensors (which ones gloo
+   takes is printed; every rank must take them). Each rank's band of the
+   1080p view, with the all_gather exchange and routed at R = 2·Pl/M,
+   against the single process's ``render`` (within 1e-6, bit for bit
+   reported; the 8 rows past H zero; no overflow); ``make_mp_train_step``
+   with both exchanges against ``train_step`` (phase 13's tolerances);
+   ``make_mp_lm_step`` on phase 7's window (50 val views in one pass per
+   alpha, capacities from ``band_probe``) against ``lm_outer_step`` (best
+   alpha equal, val loss and groups within rtol 1e-4); ``train.main
+   --mesh_model 2`` on phase 9's scene (50 iterations, events at 25 and
+   50, test, save, checkpoint), the sharded checkpoint round trip and its
+   gather against the npz bit for bit, ``train_lm.main --mesh_model 2``
+   for one LM iteration (5 val views). On each rank kernels A, B and C on
+   the Adam step's band inputs and E on the LM step's first J·v against
+   their plain versions, launches {A 1, B 2, C 1} per Adam step and {A 8,
+   C 4, E 6} per LM step. Prints per rank each step against the single
+   process, the exchanges' and the reduce-scatter's times and bytes, the
+   busy share, the peak memory and the launches.
+15. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of gslm_tpu. It finds the package beside itself
@@ -1082,6 +1103,8 @@ def run(dev, n_gauss: int, height: int, width: int) -> None:
                             root, adam_ms)
         lpips_parity_phase(dev, tag, kernels, model, root)
         dp_phase(dev, n_gauss, height, width, tag, kernels, src, root, lm_ref)
+        mp_phase(dev, n_gauss, M1_N, height, width, tag, kernels, src, root,
+                 lm_ref)
     for entry, k in zip(kernels, "ABCDE"):
         if k in attrs:
             entry["attrs"] = attrs[k]
@@ -4610,6 +4633,650 @@ def dp_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     print(f"{tag} phase 13 wall {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
+
+
+# ---- phase 14: the model axis over ranks -----------------------------------
+
+MP_WORLD = 2            # gloo ranks sharing the one card: a (1, 2) mesh
+MP_STEPS = 3            # timed model-parallel Adam steps per rank
+MP_ITERS = 50           # train.main --mesh_model 2: Adam iterations
+MP_DENSIFY = (20, 25)   # its --densify_from_iter, --densification_interval
+MP_VAL_VIEWS = 5        # train_lm.main --mesh_model 2: --num_val_views
+MP_TIMEOUT = 900.0      # join timeout of the ranks (s)
+# per rank: the Adam step (band render, SSIM blur forward and VJP, band
+# backward); the LM step (1 linearization + 7 one-pass val renders, Jᵀ·u
+# and J·v as in lm_outer_step)
+MP_ADAM_LAUNCHES = {"A": 1, "B": 2, "C": 1, "D": 0, "E": 0}
+MP_LM_LAUNCHES = {"A": 8, "B": 0, "C": 4, "D": 0, "E": 6}
+
+
+def mp_collectives(dev, mesh) -> dict:
+    """Which of the model axis's collectives gloo takes on ``dev``'s
+    tensors (all_gather, all_to_all_single, all_reduce SUM and MAX,
+    broadcast, gather; float32, int32, uint8; the reduce-scatter of the
+    all_gather's backward on float32), each result checked, over the model
+    group. Returns {collective dtype: True or the error}."""
+    import torch
+    import torch.distributed as dist
+    g, n, r = mesh.model_group, mesh.n_model, mesh.model_rank
+    took = {}
+    for dtype in (torch.float32, torch.int32, torch.uint8):
+        name = str(dtype)[6:]
+
+        def full(v, size=1 << 10):
+            return torch.full((size,), v, dtype=dtype, device=dev)
+
+        def ag():
+            parts = [full(0) for _ in range(n)]
+            dist.all_gather(parts, full(r + 1), group=g)
+            return all(bool((p == i + 1).all()) for i, p in enumerate(parts))
+
+        def a2a():
+            out = full(0, n * 16)
+            dist.all_to_all_single(out, full(r + 1, n * 16), group=g)
+            return bool((out.reshape(n, 16) == torch.arange(
+                1, n + 1, device=dev).to(dtype)[:, None]).all())
+
+        def ar(op, want):
+            t = full(r + 1)
+            dist.all_reduce(t, op=op, group=g)
+            return bool((t == want).all())
+
+        def bc():
+            t = full(r + 1)
+            dist.broadcast(t, dist.get_global_rank(g, 0), group=g)
+            return bool((t == 1).all())
+
+        def ga():
+            parts = [full(0) for _ in range(n)] if r == 0 else None
+            dist.gather(full(r + 1), parts, dst=dist.get_global_rank(g, 0),
+                        group=g)
+            return r != 0 or all(bool((p == i + 1).all())
+                                 for i, p in enumerate(parts))
+
+        def rs():
+            from gslm_tpu_torch.parallel.comm import _REDUCE_SCATTER
+            out = full(0)
+            _REDUCE_SCATTER(out, torch.arange(
+                n, device=dev).to(dtype).repeat_interleave(1 << 10) + r,
+                group=g)
+            return bool((out == r * n + n * (n - 1) // 2).all())
+
+        probes = [("all_gather", ag), ("all_to_all_single", a2a),
+                  ("all_reduce_sum", lambda: ar(dist.ReduceOp.SUM,
+                                                n * (n + 1) // 2)),
+                  ("all_reduce_max", lambda: ar(dist.ReduceOp.MAX, n)),
+                  ("broadcast", bc), ("gather", ga)]
+        if dtype == torch.float32:
+            probes.append(("reduce_scatter", rs))
+        for label, fn in probes:
+            try:
+                took[f"{label} {name}"] = fn()
+            except RuntimeError as e:
+                took[f"{label} {name}"] = str(e).splitlines()[0]
+    return took
+
+
+def mp_rank(rank: int, world: int, port: int, out_dir: str, dev_type: str,
+            src: str, root: str, n_gauss: int, m1_n: int, height: int,
+            width: int, tag: str) -> None:
+    """Phase 14's rank ``rank`` of ``world``, spawned: a gloo group on
+    127.0.0.1:``port``, every rank on cuda:0 (or the CPU, to rehearse);
+    reads phase 7's LM step from ``out_dir``/lm_ref.pt, writes its results
+    to ``out_dir``/rank<r>.json (its traceback to rank<r>.err)."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    dev = torch.device("cuda", 0) if dev_type == "cuda" else \
+        torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        res = mp_rank_body(rank, world, dev, src, root, n_gauss, m1_n,
+                           height, width,
+                           os.path.join(out_dir, "lm_ref.pt"), tag)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def mp_adam_held(got: dict, want: dict, rows: slice, got_m: dict,
+                 want_m: dict) -> dict:
+    """A model-parallel Adam step's shard against the single process's
+    rows ``rows`` (``adam_held``'s tolerances: the loss within 1e-6; each
+    group within 1e-5 where the single step's |first moment| exceeds 1e-3
+    of its group's largest; xyz_gradient_accum within 1e-5 of its largest;
+    alive, denom and max_radii2d equal). Returns the errors."""
+    from gslm_tpu_torch.models.gaussians import PARAM_GROUPS
+    err = {"loss": abs(float(got_m["loss"]) - float(want_m["loss"]))}
+    for g in PARAM_GROUPS:
+        sel = slice(None) if g == "exposure" else rows
+        mu = want[f"mu/{g}"].abs()
+        sure = (mu > 1e-3 * float(mu.max()))[sel]
+        d = (got[g] - want[g][sel]).abs()
+        err[g] = float(d[sure].max()) if bool(sure.any()) else 0.0
+    ref = want["xyz_gradient_accum"]
+    err["xyz_gradient_accum_rel"] = float(
+        (got["xyz_gradient_accum"] - ref[rows]).abs().max()) / max(
+        float(ref.abs().max()), 1e-30)
+    check(err["loss"] <= 1e-6, f"model-parallel loss: {err}")
+    check(all(err[g] <= 1e-5 for g in PARAM_GROUPS),
+          f"model-parallel parameters: {err}")
+    check(err["xyz_gradient_accum_rel"] <= 1e-5,
+          f"model-parallel xyz_gradient_accum: {err}")
+    check(not [k for k in ("alive", "max_radii2d", "denom")
+               if not bool((got[k] == want[k][rows]).all())],
+          "model-parallel alive, max_radii2d or denom")
+    return {k: float(f"{v:.3g}") for k, v in err.items()}
+
+
+def mp_lm_held(got: dict, want: dict, rows: slice, got_i: dict,
+               want_i: dict) -> dict:
+    """A model-parallel LM step's shard against the single process's rows
+    ``rows``: best_alpha equal, best_val_loss within rtol 1e-4, every group
+    within rtol 1e-4 (atol 1e-4 of its largest). Returns the errors."""
+    from gslm_tpu_torch.models.gaussians import PARAM_GROUPS
+    err = {"best_val_loss_rel": abs(float(got_i["best_val_loss"])
+                                    - float(want_i["best_val_loss"]))
+           / abs(float(want_i["best_val_loss"]))}
+    check(float(got_i["best_alpha"]) == float(want_i["best_alpha"]),
+          "model-parallel LM step: another best alpha")
+    check(err["best_val_loss_rel"] <= DP_LM_RTOL, f"mp LM val loss: {err}")
+    for g in PARAM_GROUPS:
+        ref = want[g] if g == "exposure" else want[g][rows]
+        scale = max(float(want[g].abs().max()), 1e-30)
+        excess = (got[g] - ref).abs() - DP_LM_RTOL * (ref.abs() + scale)
+        err[g] = float((got[g] - ref).abs().max()) / scale
+        check(float(excess.max()) <= 0, f"mp LM group {g}: {err}")
+    return {k: float(f"{v:.3g}") for k, v in err.items()}
+
+
+def mp_rank_body(rank: int, world: int, dev, src: str, root: str,
+                 n_gauss: int, m1_n: int, height: int, width: int,
+                 lm_ref: str, tag: str) -> dict:
+    """Phase 14 on one rank: its checks, times and launch counts as a dict
+    that ``json`` writes. On the card it also times kernels A, B and C on
+    the Adam step's band inputs and E on the LM step's, and prints their
+    work and bounds (``a_report``, ``c_report``, ``e_report``)."""
+    import torch
+
+    from gslm_tpu_torch.ops import rasterize_cuda as rc
+    from gslm_tpu_torch.ops.blur_cuda import blur_same
+
+    from gslm_tpu_torch import train as T
+    from gslm_tpu_torch import train_lm as TL
+    from gslm_tpu_torch.checkpoint import (load_checkpoint,
+                                           load_checkpoint_sharded,
+                                           save_checkpoint_sharded)
+    from gslm_tpu_torch.config import LMParams, OptimizationParams
+    from gslm_tpu_torch.models.gaussians import GaussianAux
+    from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig
+    from gslm_tpu_torch.optim import init_adam
+    from gslm_tpu_torch.parallel import (make_mesh, make_mp_lm_step,
+                                         make_mp_train_step, shard_state)
+    from gslm_tpu_torch.parallel.comm import (_reduce_scatter, all_gather,
+                                              all_to_all)
+    from gslm_tpu_torch.parallel.mesh import all_reduce, barrier
+    from gslm_tpu_torch.parallel.model_raster import (
+        _pack, band_probe, band_rows, exchange_bytes, mp_render_views,
+        mp_scalar_training_loss)
+    from gslm_tpu_torch.renderer import _pre, overflow_probe, render
+    from gslm_tpu_torch.utils.synthetic import (random_gaussians,
+                                                ring_camera_batch)
+
+    mesh = make_mesh(1, world)
+    out = {"rank": rank, "mesh": mesh.shape}
+    cuda = dev.type == "cuda"
+    out["gloo_cuda"] = mp_collectives(dev, mesh)
+    check(all(v is True for v in out["gloo_cuda"].values()),
+          f"gloo on {dev.type} tensors: {out['gloo_cuda']}")
+    totals = {k: 0 for k in "ABCDE"}
+
+    def sync():
+        sync_device(dev)
+        barrier(mesh)
+
+    def wall_ms(fn):
+        sync_device(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        sync_device(dev)
+        return res, (time.perf_counter() - t0) * 1e3
+
+    def count(before):
+        after = launches()
+        for k in totals:
+            totals[k] += after[k] - before[k]
+        return _delta(before, after)
+
+    def in_turns(fn):
+        """``fn()`` on one rank at a time, the others waiting: the ranks
+        share the card, so a kernel timed while the other rank runs
+        measures both."""
+        got = None
+        for turn in range(world):
+            sync()
+            if turn == rank:
+                with torch.no_grad():
+                    got = fn()
+        sync()
+        return got
+
+    def world_max(x) -> int:
+        return int(all_reduce([torch.as_tensor(x, device=dev).reshape(1)],
+                              "max", mesh.world_group)[0])
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    # ---- 1. the m1 view's bands, both exchanges --------------------------
+    params = random_gaussians(np.random.default_rng(2), n=m1_n,
+                              capacity=m1_n, sh_degree=3, num_images=1,
+                              spread=1.5, scale_range=(-5.5, -3.5),
+                              device=dev)
+    cams = ring_camera_batch(1, height, width, device=dev)
+    bg = torch.zeros(3, device=dev)
+    pr = overflow_probe(params, cams, config=RasterConfig(cull=True))
+    cfg = caps_from_counts(int(pr["n_aabb"]), int(pr["n_live"]))
+    rows = mesh.rows(m1_n)
+    Pl = rows.stop - rows.start
+    R = 2 * Pl // mesh.n_model
+    bh_px = band_rows(height, mesh.n_model) * 16
+    lo = mesh.model_rank * bh_px
+    in_h = max(0, min(bh_px, height - lo))
+    start = (params, GaussianAux.zeros(m1_n, dev), init_adam(params))
+    p_l, a_l, o_l = shard_state(mesh, *clone_state(*start))
+    with torch.no_grad():
+        single = render(params, cams.view(0), bg, config=cfg)
+        out["render"] = {}
+        for name, c in (("gather", cfg),
+                        ("route", cfg.replace(mp_route_capacity=R))):
+            before = launches()
+            img, invd, _, diags = mp_render_views(p_l, cams, bg, config=c,
+                                                  mesh=mesh)
+            sync_device(dev)
+            got = count(before)
+            want_img = single.render[:, lo:lo + in_h]
+            want_inv = single.invdepth[:, lo:lo + in_h]
+            d = max(float((img[0, :, :in_h] - want_img).abs().max()),
+                    float((invd[0, :, :in_h] - want_inv).abs().max()))
+            # the loss's band: rows past H zeroed (the raw render has the
+            # last tile row's splats there)
+            _, info = mp_scalar_training_loss(p_l, cams, bg, config=c,
+                                              mesh=mesh)
+            out["render"][name] = {
+                "launches": got, "max_abs": d,
+                "bitwise": bool(torch.equal(img[0, :, :in_h], want_img)
+                                and torch.equal(invd[0, :, :in_h],
+                                                want_inv)),
+                "pad_rows": bh_px - in_h,
+                "pad_zero": bool(
+                    (info["band_render"][0, :, in_h:] == 0).all()
+                    and (info["band_render_raw"][0, :, in_h:] == 0).all()),
+                "overflow": world_max(diags["overflow"]),
+                "bytes": exchange_bytes(1, Pl, mesh.n_model, c.mp_route_capacity)}
+            check(d <= 1e-6, f"rank {rank}'s {name} band differs from the "
+                  f"single process's render: {d}")
+            check(out["render"][name]["pad_zero"], f"rank {rank}'s loss band "
+                  f"has nonzero rows past H ({name})")
+            check(out["render"][name]["overflow"] == 0, f"{name} overflows")
+            check(got["A"] == 1 and sum(got.values()) == 1,
+                  f"band render launches {got}")
+            del img, invd, info
+        del single
+        # the exchange's and the reduce-scatter's times at this view
+        views = [_pre(p_l, cams.view(0), cfg, 3, 1.0, None, None)]
+        fl, it = _pack(views)
+        sync()
+        out["gather_ms"] = [wall_ms(lambda: (
+            all_gather(fl, mesh.model_group, 1),
+            all_gather(it, mesh.model_group, 1)))[1] for _ in range(5)]
+        sf = torch.zeros(mesh.n_model * R, 11, device=dev)
+        si = torch.zeros(mesh.n_model * R, 6, dtype=torch.int32, device=dev)
+        sync()
+        out["route_ms"] = [wall_ms(lambda: (
+            all_to_all(sf, mesh.model_group),
+            all_to_all(si, mesh.model_group)))[1] for _ in range(5)]
+        g = torch.zeros(1, m1_n, 11, device=dev)
+        per = m1_n // mesh.n_model
+
+        def all_reduce_slice():
+            # the transpose's other form, timed in turns with the port's
+            y = g.clone()
+            torch.distributed.all_reduce(y, group=mesh.model_group)
+            return y.narrow(1, mesh.model_rank * per, per)
+        sync()
+        turns = [(wall_ms(lambda: _reduce_scatter(g, mesh.model_group, 1))[1],
+                  wall_ms(all_reduce_slice)[1]) for _ in range(5)]
+        out["reduce_scatter_ms"] = [a for a, _ in turns]
+        out["all_reduce_slice_ms"] = [b for _, b in turns]
+        out["reduce_scatter_bytes"] = g.numel() * 4
+        del views, fl, it, sf, si, g
+
+    # ---- 2. the model-parallel Adam step against train_step ---------------
+    kw = dict(opt=OptimizationParams(), active_sh_degree=3, use_exp=False,
+              sparse_adam=False, update_stats=True)
+    p, a, o = clone_state(*start)
+    _, _, _, want_m = T.train_step(p, a, o, cams, bg, 1, 1.0, 0.0, rcfg=cfg,
+                                   **kw)
+    want = {k: v.clone() for k, v in state_tensors(p, a, o).items()}
+    del p, a, o
+    out["adam"] = {}
+    for name, c in (("gather", cfg),
+                    ("route", cfg.replace(mp_route_capacity=R))):
+        step = make_mp_train_step(mesh, rcfg=c, **kw)
+        p_l, a_l, o_l = shard_state(mesh, *clone_state(*start))
+        sync()
+        before = launches()
+        with backward_inputs() as c_in, blur_inputs() as b_in:
+            _, _, _, got_m = step(p_l, a_l, o_l, cams, bg, 1, 1.0, 0.0)
+            sync_device(dev)
+        res = {"launches": count(before),
+               "err": mp_adam_held(state_tensors(p_l, a_l, o_l), want, rows,
+                                   got_m, want_m),
+               "loss": [float(got_m["loss"]), float(want_m["loss"])]}
+        check(res["launches"] == MP_ADAM_LAUNCHES,
+              f"rank {rank} mp Adam launches {res['launches']}")
+        if name == "gather" and cuda:
+            res["kernels"] = step_vs_plain(
+                f"mp Adam band, rank {rank}", c_in[0], b_in)
+            rec, st, cn, ntx, vrows, gtiles, xstate, dg = c_in[0]
+            planes, taps = b_in[0]
+            kms = in_turns(lambda: {
+                "A": cuda_ms(lambda: rc.composite_tiles(
+                    rec, st, cn, ntx, vrows), 10),
+                "B": cuda_ms(lambda: blur_same(planes, taps), 10),
+                "C": cuda_ms(lambda: rc.composite_tiles_bwd(*c_in[0]), 10)})
+            label = f"(m1 band {mesh.model_rank} of {mesh.n_model})"
+            ra = a_report(tag, label, rec, st, cn, ntx, vrows,
+                          rc.composite_tiles(rec, st, cn, ntx, vrows)[1],
+                          kms["A"])
+            rcc = c_report(tag, label, rec, st, cn, ntx, vrows, xstate, dg,
+                           kms["C"])
+            b_bound = 2 * planes.numel() * 4 / PEAK_BYTES * 1e3
+            res["kernel_ms"] = kms
+            res["bounds"] = {"A": [ra["bound"], ra["by"]], "C": [
+                rcc["bound"], rcc["by"]], "B": [b_bound, "bytes"]}
+            res["band_shape"] = {"records": int(rec.shape[0]),
+                                 "tiles": int(cn.shape[0]),
+                                 "planes": list(planes.shape)}
+            print(f"{tag} 14 rank {rank} kernels on the m1 band (ms, CUDA "
+                  f"events, median of 10, one rank at a time): {kms}; B's "
+                  f"byte bound "
+                  f"{b_bound:.4f} ms on planes {tuple(planes.shape)}",
+                  flush=True)
+            before = launches()
+            res["ms"] = [wall_ms(lambda: step(p_l, a_l, o_l, cams, bg, 2,
+                                              1.0, 0.0))[1]
+                         for _ in range(MP_STEPS)]
+            n_k, busy, wall = device_busy(lambda: step(p_l, a_l, o_l, cams,
+                                                       bg, 3, 1.0, 0.0))
+            count(before)
+            res["busy"] = [n_k, busy, wall]
+        del c_in, b_in
+        out["adam"][name] = res
+        del p_l, a_l, o_l
+    del want
+    # the single process's step on the same card, the other rank waiting
+    sync()
+    if rank == 0:
+        p, a, o = clone_state(*start)
+        out["single_adam_ms"] = [wall_ms(lambda: T.train_step(
+            p, a, o, cams, bg, 1, 1.0, 0.0, rcfg=cfg, **kw))[1]
+            for _ in range(MP_STEPS)]
+        del p, a, o
+    sync()
+    del start, params
+
+    # ---- 3. the model-parallel LM step against phase 7's lm_outer_step ----
+    params, all_train, win, vidx = lm_scene(dev, n_gauss, height, width)
+    p_l = shard_state(mesh, params)
+    window, val = all_train.take(win), all_train.take(vidx)
+    need = 0
+    for cams_ in (window, val):
+        band = band_probe(p_l, cams_, config=RasterConfig(cull=True),
+                          mesh=mesh)["band_aabb"]
+        need = max(need, int(band.sum(0).max()))
+    lcfg = caps_from_counts(need, need)
+    out["lm_caps"] = [lcfg.dup_capacity, lcfg.live_capacity]
+    lm_step = make_mp_lm_step(mesh, rcfg=lcfg, lm=LMParams(),
+                              active_sh_degree=3, use_exp=False)
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    before = launches()
+    with jvp_inputs() as e_in:
+        (got, got_i), ms = wall_ms(lambda: lm_step(p_l, p_l.alive, window,
+                                                   val, bg))
+    out["lm_launches"] = count(before)
+    out["lm_ms"] = ms
+    out["lm_peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
+                          if cuda else 0.0)
+    check(out["lm_launches"] == MP_LM_LAUNCHES,
+          f"rank {rank} mp LM launches {out['lm_launches']}")
+    ref = torch.load(lm_ref, map_location=dev)
+    out["lm_err"] = mp_lm_held(state_tensors(got), ref["state"],
+                               mesh.rows(n_gauss), got_i, ref["info"])
+    out["lm_best"] = [float(got_i["best_val_loss"]),
+                      float(ref["info"]["best_val_loss"])]
+    if cuda:
+        e_args = e_in[0][:6]
+        e = e_vs_plain(f"mp LM window band, rank {rank}", *e_args)
+        rec, _, st, cn, ntx, vrows = e_args
+        e_ms, a_ms = in_turns(lambda: (
+            cuda_ms(lambda: rc.composite_tiles_jvp(*e_args), 10),
+            cuda_ms(lambda: rc.composite_tiles(rec, st, cn, ntx, vrows), 10)))
+        label = f"(LM window band {mesh.model_rank} of {mesh.n_model})"
+        ra = a_report(tag, label, rec, st, cn, ntx, vrows, e["walked"], a_ms)
+        re_ = e_report(tag, label, ra["work"], int(e["walked"].long().sum()),
+                       cn.shape[0], e_ms)
+        out["lm_kernels"] = {"E": e["err"], "E_vs_A": e["vs_a"],
+                             "E_ms": e_ms, "E_plain_ms": e["plain_ms"],
+                             "E_bound": [re_["bound"], re_["by"]],
+                             "records": int(rec.shape[0]),
+                             "tiles": int(cn.shape[0])}
+        del e, e_args, rec, st, cn
+    del got, got_i, params, all_train, p_l, e_in, ref, window, val
+
+    # ---- 4. the command lines with a model axis ---------------------------
+    model = os.path.join(root, "mp")
+    ck = os.path.join(model, f"chkpnt{MP_ITERS}.npz")
+    common = ["-s", src, "-m", model, "-r", "1", "--eval", "--capacity",
+              str(2 * n_gauss), "--mesh_model", str(world),
+              "--disable_viewer"] + ([] if cuda else ["--platform", "cpu"])
+    argv = common + ["--iterations", str(MP_ITERS),
+                     "--densify_from_iter", str(MP_DENSIFY[0]),
+                     "--densification_interval", str(MP_DENSIFY[1]),
+                     "--test_iterations", str(MP_ITERS),
+                     "--save_iterations", str(MP_ITERS),
+                     "--checkpoint_iterations", str(MP_ITERS)]
+    sync()
+    before = launches()
+    t0 = time.perf_counter()
+    with entry_point() as tee:
+        _, p, a, o = T.main(argv)
+    out["train_s"] = time.perf_counter() - t0
+    out["train_launches"] = count(before)
+    out["train_lines"] = [ln for ln in tee.text().splitlines()
+                          if "PSNR" in ln or "Model-parallel" in ln
+                          or "overflow" in ln]
+    out["train_step"] = o.step
+    out["train_alive"] = int(all_reduce([p.alive.sum()], "sum",
+                                        mesh.model_group)[0])
+    # the sharded checkpoint: its own rows back bit for bit, its gather
+    # bit for bit the npz train.main wrote
+    shard_dir = os.path.join(root, "mp_sharded")
+    save_checkpoint_sharded(shard_dir, p, a, o, MP_ITERS, 1.0, mesh=mesh)
+    mine = load_checkpoint_sharded(shard_dir, mesh=mesh, device=dev)
+    whole = load_checkpoint_sharded(shard_dir, device=dev)
+    npz = load_checkpoint(ck, device=dev)
+    out["ckpt_mine_diff"] = bitwise_diff(state_tensors(p, a, o),
+                                         state_tensors(*mine[:3]))
+    out["ckpt_whole_diff"] = bitwise_diff(state_tensors(*npz[:3]),
+                                          state_tensors(*whole[:3]))
+    check(not out["ckpt_mine_diff"] and not out["ckpt_whole_diff"],
+          f"sharded checkpoint round trip: {out['ckpt_mine_diff']}, "
+          f"{out['ckpt_whole_diff']}")
+    del p, a, o, mine, whole, npz
+    lm_argv = common + ["--start_checkpoint", ck, "--iterations",
+                        str(MP_ITERS + 1), "--jvp_start", str(MP_ITERS + 1),
+                        "--dup_capacity", str(16 * 2 * n_gauss),
+                        "--num_val_views", str(MP_VAL_VIEWS)]
+    sync()
+    before = launches()
+    t0 = time.perf_counter()
+    with entry_point() as tee:
+        TL.main(lm_argv)
+    out["lm_cli_s"] = time.perf_counter() - t0
+    out["lm_cli_launches"] = count(before)
+    out["lm_cli_lines"] = [ln for ln in tee.text().splitlines()
+                           if "LM window" in ln or "growing" in ln
+                           or "re-running" in ln or "WARNING" in ln]
+    out["files"] = sorted(os.listdir(model)) if rank == 0 else []
+    out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2**30
+                       if cuda else 0.0)
+    out["totals"] = totals
+    return out
+
+
+def mp_phase(dev, n_gauss: int, m1_n: int, height: int, width: int,
+             tag: str, kernels: list[dict], src: str, root: str,
+             lm_ref: dict) -> None:
+    """Phase 14 (cell train-mp2-m1-1080p): ``MP_WORLD`` spawned gloo ranks
+    sharing the card as a (1, ``MP_WORLD``) mesh: the million-Gaussian
+    view's bands with both exchanges, the model-parallel Adam step on it,
+    the LM step on cell lm-1080p-w5's window (held to phase 7's,
+    ``lm_ref``), then ``train.main`` and ``train_lm.main --mesh_model`` on
+    phase 9's scene ``src``. Adds each rank's launches to the kernel
+    entries in ``kernels``."""
+    import torch
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    t_phase = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out_dir = os.path.join(root, "mp_ranks")
+    os.makedirs(out_dir)
+    torch.save({part: {k: v.cpu() for k, v in lm_ref[part].items()}
+                for part in ("state", "info")},
+               os.path.join(out_dir, "lm_ref.pt"))
+    ctx = mp.start_processes(
+        mp_rank, args=(MP_WORLD, free_port(), out_dir, dev.type, src, root,
+                       n_gauss, m1_n, height, width, tag),
+        nprocs=MP_WORLD, join=False, start_method="spawn")
+    deadline = time.monotonic() + MP_TIMEOUT
+    try:
+        while not ctx.join(timeout=1.0):
+            check(time.monotonic() < deadline,
+                  f"phase 14 ranks still running after {MP_TIMEOUT} s")
+    except ProcessException as e:
+        errs = [pathlib.Path(out_dir, f).read_text()
+                for f in sorted(os.listdir(out_dir)) if f.endswith(".err")]
+        raise RuntimeError("a phase 14 rank failed:\n"
+                           + "\n".join(errs)) from e
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ranks = []
+    for r in range(MP_WORLD):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    r0 = ranks[0]
+    print(f"{tag} 14 gloo on CUDA tensors, the model axis's collectives "
+          f"(no host staging where every entry is True): {r0['gloo_cuda']}",
+          flush=True)
+    for r in ranks:
+        for name, res in r["render"].items():
+            print(f"{tag} 14 rank {r['rank']} m1 band ({name}): max|d| "
+                  f"{res['max_abs']:.3g} vs the single process's render "
+                  f"({'bit for bit' if res['bitwise'] else 'not bitwise'}); "
+                  f"{res['pad_rows']} rows past H zero in the loss's band "
+                  f"{res['pad_zero']}; "
+                  f"overflow {res['overflow']}; launches {res['launches']}; "
+                  f"exchange {res['bytes']} B per rank", flush=True)
+        for name, res in r["adam"].items():
+            print(f"{tag} 14 rank {r['rank']} mp Adam step ({name}) vs "
+                  f"train_step on the m1 view: {res['err']}; launches "
+                  f"{res['launches']}", flush=True)
+        print(f"{tag} 14 rank {r['rank']} mp LM step (window of 5 views, "
+              f"50 val views in one pass per alpha, bucket 1) vs phase 7's "
+              f"lm_outer_step: best "
+              f"val loss {r['lm_best'][0]:.6f} vs {r['lm_best'][1]:.6f}; "
+              f"{r['lm_err']}; caps {r['lm_caps']}; launches "
+              f"{r['lm_launches']}", flush=True)
+    for r in ranks:
+        ad = r["adam"]["gather"]
+        n_k, busy, wall = ad.get("busy", (0, 0.0, 1.0))
+        med = statistics.median(ad["ms"]) if "ms" in ad else 0.0
+        print(f"{tag} 14 rank {r['rank']}: mp Adam step median {med:.3f} ms "
+              f"(runs {[round(x, 3) for x in ad.get('ms', [])]}); all_gather "
+              f"exchange {statistics.median(r['gather_ms']):.3f} ms for "
+              f"{r['render']['gather']['bytes']} B; routed all_to_all "
+              f"{statistics.median(r['route_ms']):.3f} ms for "
+              f"{r['render']['route']['bytes']} B; reduce-scatter "
+              f"{statistics.median(r['reduce_scatter_ms']):.3f} ms "
+              f"(all_reduce + slice in turns "
+              f"{statistics.median(r['all_reduce_slice_ms']):.3f} ms) "
+              f"for {r['reduce_scatter_bytes']} B (medians of 5); one "
+              f"profiled Adam step: {n_k} CUDA kernels, device busy "
+              f"{busy:.3f} ms of {wall:.3f} ms wall ({busy / wall:.3f}); mp "
+              f"LM step {r['lm_ms']:.1f} ms, peak {r['lm_peak_gib']:.2f} GiB;"
+              f" phase peak {r['peak_gib']:.2f} GiB", flush=True)
+        if "lm_kernels" in r:
+            print(f"{tag} 14 rank {r['rank']} kernel tables: Adam band "
+                  f"{r['adam']['gather']['band_shape']}, ms "
+                  f"{r['adam']['gather']['kernel_ms']}, bounds "
+                  f"{r['adam']['gather']['bounds']}; LM window band "
+                  f"{r['lm_kernels']}", flush=True)
+        print(f"{tag} 14 rank {r['rank']} launches: Adam "
+              f"{r['adam']['gather']['launches']}, LM {r['lm_launches']}, "
+              f"train.main {r['train_launches']}, train_lm.main "
+              f"{r['lm_cli_launches']}; phase total {r['totals']}",
+              flush=True)
+    if "single_adam_ms" in r0:
+        single = r0["single_adam_ms"]
+        print(f"{tag} 14 single process on the same card: train_step on the "
+              f"m1 view median {statistics.median(single):.3f} ms (runs "
+              f"{[round(x, 3) for x in single]}); lm_outer_step "
+              f"{lm_ref['ms']:.1f} ms (phase 7's median)", flush=True)
+    print(f"{tag} 14 train.main --mesh_model {MP_WORLD}: {MP_ITERS} "
+          f"iterations in {r0['train_s']:.1f} s, {r0['train_alive']} alive, "
+          f"step {r0['train_step']}, lines {r0['train_lines']}; the sharded "
+          f"checkpoint round trip and its gather vs chkpnt{MP_ITERS}.npz: "
+          f"bit for bit; train_lm.main --mesh_model {MP_WORLD} "
+          f"--num_val_views {MP_VAL_VIEWS}: 1 LM iteration in "
+          f"{r0['lm_cli_s']:.1f} s, lines {r0['lm_cli_lines']}; rank 0 "
+          f"wrote {r0['files']}", flush=True)
+    check(r0["train_step"] == MP_ITERS, "train.main's Adam step count")
+    check(f"chkpnt{MP_ITERS}.npz" in r0["files"] and "cfg_args" in r0["files"],
+          "train.main --mesh_model: rank 0's files")
+    check(any("LM window [" in ln for ln in r0["lm_cli_lines"]),
+          "train_lm.main --mesh_model: no LM step")
+    check(not any("WARNING" in ln for ln in r0["lm_cli_lines"]),
+          "train_lm.main --mesh_model: a degraded LM step")
+    for r in ranks:
+        for k in "ABCE":
+            check(r["totals"][k] > 0, f"rank {r['rank']} never launched "
+                                      f"kernel {k} on the model-parallel path")
+    for entry, k in zip(kernels, "ABCDE"):
+        for r in ranks:
+            n = r["totals"][k]
+            entry["launches_by_path"][f"model_parallel_rank{r['rank']}"] = n
+            entry["launches"] += n
+    print(f"{tag} phase 14 wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -20,7 +20,6 @@ import json
 import os
 from argparse import ArgumentParser, BooleanOptionalAction, Namespace
 
-from gslm_tpu_torch.ops.rasterize_tiled import MP_ROUTE_MESSAGE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,14 +124,13 @@ class LMParams:
 class TpuParams:
     """Capacities and execution knobs. ``capacity`` (0: from the point
     count), ``dup_capacity``, ``live_capacity``, ``raster_cull``,
-    ``raster_impl`` and ``mesh_data`` (the data axis: views split over
-    that many ``torch.distributed`` ranks) are read. ``max_per_tile``,
-    ``tile_chunk``, ``raster_pack`` and ``cache_dir`` configure the TPU
-    kernels and XLA only: any value but their default raises.
-    ``mesh_model`` above 1 and ``mp_route_capacity`` (the routed-record
-    capacity of the model-parallel exchange) belong to the model axis,
-    which is not ported yet (ROADMAP.md queue 1, item 2): they raise
-    too."""
+    ``raster_impl``, ``mesh_data`` and ``mesh_model`` (the data axis:
+    views split over that many ``torch.distributed`` ranks; the model
+    axis: Gaussians sharded over that many) and ``mp_route_capacity`` (the
+    model axis's routed-record capacity, 0 for its all_gather) are read.
+    ``max_per_tile``, ``tile_chunk``, ``raster_pack`` and ``cache_dir``
+    configure the TPU kernels and XLA only: any value but their default
+    raises."""
 
     capacity: int = 0
     dup_capacity: int = 1 << 21
@@ -157,19 +155,7 @@ class TpuParams:
                     f"{name}={getattr(self, name)!r} configures the TPU "
                     f"execution only, which the port does not have; leave "
                     f"it at {default!r}")
-        if self.mp_route_capacity != 0:
-            raise NotImplementedError(
-                f"mp_route_capacity={self.mp_route_capacity}: "
-                f"{MP_ROUTE_MESSAGE}; leave it at 0")
-        if self.mesh_model != 1:
-            raise NotImplementedError(
-                f"mesh_model={self.mesh_model}: {MESH_MODEL_MESSAGE}")
         resolve_impl(self.raster_impl)
-
-
-MESH_MODEL_MESSAGE = ("the model axis (Gaussians sharded over ranks) is "
-                      "not ported yet (ROADMAP.md queue 1, item 2); the "
-                      "data axis (mesh_data) is")
 
 _FIELD_DEFAULTS = {f.name: f.default for f in dataclasses.fields(TpuParams)}
 

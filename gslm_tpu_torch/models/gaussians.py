@@ -232,8 +232,7 @@ def params_from_numpy(d: dict[str, np.ndarray], sh_degree: int, alive=None,
 
 # ---------------------------------------------------------------------------
 # Vector algebra over parameter-space vectors ({group: tensor} dicts): the
-# LM solver's (gslm_tpu/models/gaussians.py:200-268). Multi-device
-# ``vdot_sharded`` comes with the multi-device slice.
+# LM solver's (gslm_tpu/models/gaussians.py:200-268).
 # ---------------------------------------------------------------------------
 
 
@@ -265,6 +264,24 @@ def vdot(a: dict, b: dict, damp: dict[str, float] | float = 1.0
         w = damp[g] if isinstance(damp, dict) else damp
         total = total + w * torch.dot(a[g].reshape(-1), b[g].reshape(-1))
     return total
+
+
+def vdot_sharded(a: dict, b: dict, damp: dict[str, float] | float,
+                 model_group) -> torch.Tensor:
+    """``vdot`` of vectors whose per-Gaussian groups are this rank's shard
+    of the model axis: their products are summed over ``model_group`` (a
+    process group; None is one rank), ``exposure``, replicated, is counted
+    once."""
+    from gslm_tpu_torch.parallel.mesh import all_reduce
+    local = torch.zeros((), dtype=torch.float32, device=a["xyz"].device)
+    for g in PARAM_GROUPS:
+        if g != "exposure":
+            w = damp[g] if isinstance(damp, dict) else damp
+            local = local + w * torch.dot(a[g].reshape(-1), b[g].reshape(-1))
+    total = all_reduce([local], "sum", model_group)[0]
+    w = damp["exposure"] if isinstance(damp, dict) else damp
+    return total + w * torch.dot(a["exposure"].reshape(-1),
+                                 b["exposure"].reshape(-1))
 
 
 def saxpy(a, x: dict, y: dict) -> dict:

@@ -47,12 +47,14 @@ class RasterConfig(Struct):
     super-grid and every tile walks its parent bucket's segment under a
     per-tile rect gate (``rasterize_cuda.tile_records``); capacities then
     count bucket records.
+    ``mp_route_capacity``: 0 exchanges the model axis's projected splats
+    by an all_gather; R > 0 routes each shard's records to the tile-row
+    bands they meet, at most R per (source, destination) pair
+    (``parallel/model_raster.py``); ``grow`` doubles it with the record
+    capacities.
     ``pack``, ``chunk_rows`` and ``tile_chunk`` configure the TPU kernels
     and XLA stage 4 only and are unused by the port (the CUDA compositor
-    walks whole segments). ``mp_route_capacity`` is the routed-record
-    capacity of the model-parallel exchange (the model axis of
-    ``parallel``), which the port does not have yet (ROADMAP.md queue 1,
-    item 2).
+    walks whole segments).
 
     Every field the port does not read must keep its default: setting one
     raises instead of being silently ignored.
@@ -77,11 +79,9 @@ class RasterConfig(Struct):
             raise ValueError(f"bucket={self.bucket}: must be 1, 2 or 4")
         for f in UNUSED_FIELDS:
             if getattr(self, f.name) != f.default:
-                what = (MP_ROUTE_MESSAGE if f.name == "mp_route_capacity"
-                        else "the port does not read it yet")
                 raise NotImplementedError(
-                    f"{f.name}={getattr(self, f.name)!r}: {what}; leave it "
-                    f"at {f.default!r}")
+                    f"{f.name}={getattr(self, f.name)!r}: the port does not "
+                    f"read it yet; leave it at {f.default!r}")
 
     def eff_capacity(self) -> int:
         return (self.live_capacity or self.dup_capacity) if self.cull \
@@ -95,13 +95,9 @@ class RasterConfig(Struct):
                             mp_route_capacity=factor * self.mp_route_capacity)
 
 
-MP_ROUTE_MESSAGE = ("the routed-record capacity of the model-parallel "
-                    "exchange, which comes with the model axis (ROADMAP.md "
-                    "queue 1, item 2)")
-
 UNUSED_FIELDS = tuple(
     f for f in dataclasses.fields(RasterConfig)
-    if f.name in ("tile_chunk", "pack", "mp_route_capacity", "chunk_rows"))
+    if f.name in ("tile_chunk", "pack", "chunk_rows"))
 
 
 def _cdiv(a: int, b: int) -> int:

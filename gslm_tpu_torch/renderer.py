@@ -194,6 +194,38 @@ def batch_render(params: GaussianParams, cameras: CameraBatch,
     return _output(image, invd, radii, out)
 
 
+def band_counts(splats: Splats2D, n_views: int, height: int, n_model: int,
+                src_blocks: int | None = None):
+    """The model axis's record counts of ``stack_views``' splats (view v's
+    tile rows offset by v·nty): ``(band (B, M), routed (B, S, M))``, band d
+    the AABB records of its tile-row band (``model_raster.band_rows``) and
+    ``routed[:, s, d]`` how many splats of source block s the routed
+    exchange sends to band d: the rows split into S = ``src_blocks``
+    contiguous blocks, default M (the whole capacity's shards); a shard's
+    own rows are one block."""
+    from gslm_tpu_torch.parallel.model_raster import band_rows
+    nty = _cdiv(height, TILE)
+    bh = band_rows(height, n_model)
+    S = n_model if src_blocks is None else src_blocks
+    P = splats.mean2d.shape[0] // n_views
+    voff = torch.arange(n_views, dtype=torch.int32,
+                        device=splats.mean2d.device).repeat_interleave(P) \
+        * nty
+    y0 = splats.rect_min[:, 1] - voff
+    y1 = splats.rect_max[:, 1] - voff
+    w = torch.clamp(splats.rect_max[:, 0] - splats.rect_min[:, 0], min=0)
+    vis = splats.tile_count > 0
+    band, routed = [], []
+    for d in range(n_model):
+        rows = (torch.clamp(y1, d * bh, (d + 1) * bh)
+                - torch.clamp(y0, d * bh, (d + 1) * bh))
+        band.append(torch.where(vis, w * rows, 0).reshape(n_views, P)
+                    .sum(dim=1))
+        routed.append((vis & (rows > 0)).reshape(n_views, S, P // S)
+                      .sum(dim=2))
+    return torch.stack(band, dim=1), torch.stack(routed, dim=2)
+
+
 @torch.no_grad()
 def overflow_probe(params: GaussianParams, cameras: CameraBatch, *,
                    config: RasterConfig = RasterConfig(),
@@ -212,16 +244,22 @@ def overflow_probe(params: GaussianParams, cameras: CameraBatch, *,
     effective capacity, or AABB total over ``dup_capacity``).
     ``per_view=True``: (B,) ``n_aabb`` and ``n_live``; capacities bound ONE
     render, so a caller that renders in micro-batch chunks compares
-    per-chunk sums. ``n_model`` > 1 (band counts of the model-parallel
-    raster) comes with the multi-device slice and raises."""
-    if n_model != 1:
-        raise NotImplementedError(
-            "n_model > 1: the model-parallel raster is not ported yet")
+    per-chunk sums. With ``n_model`` > 1 it adds the model axis's counts
+    of the whole parameter set (``band_counts``): ``band_aabb`` (B, M), the
+    AABB records of each tile-row band, and with ``config.mp_route_capacity``
+    > 0 ``route_counts`` (B, M_src, M_dst), the routed records per source
+    shard's rows and destination band."""
     B, P = cameras.batch_size, params.capacity
     bk = config.bucket
     nty = _check_bucket(config, cameras.height)
     splats = stack_views(params, cameras, config=config,
                          active_sh_degree=active_sh_degree, alive=alive)[0]
+    model = {}
+    if n_model > 1:
+        band, routed = band_counts(splats, B, cameras.height, n_model)
+        model["band_aabb"] = band
+        if config.mp_route_capacity > 0:
+            model["route_counts"] = routed
     if bk > 1:
         splats = bucket_splats(splats, bk)
     n_aabb = splats.tile_count.reshape(B, P).sum(dim=1)
@@ -233,7 +271,7 @@ def overflow_probe(params: GaussianParams, cameras: CameraBatch, *,
     else:
         n_live = n_aabb
     if per_view:
-        return {"n_aabb": n_aabb, "n_live": n_live}
+        return {"n_aabb": n_aabb, "n_live": n_live} | model
     n_aabb, n_live = n_aabb.sum(), n_live.sum()
     over = ((n_live > config.eff_capacity())
             | (n_aabb > config.dup_capacity)).to(torch.int32)

@@ -24,8 +24,16 @@ Parameter-space vectors are ``{group: tensor}`` dicts, residual-space ones
 ranks (``parallel``) while the parameters are replicated. Residual-space
 dots, the loss and every Jᵀ·u (after ``torch.autograd.grad``, one flat
 buffer per collective) are summed over the ranks; parameter-space dots and
-J·v stay local. ``param_axis`` (model-sharded parameters) raises until the
-model axis is ported.
+J·v stay local. ``param_axis="model"`` (with the ``mesh`` that has it): the
+per-Gaussian groups are this rank's shard of the model axis and the
+residuals its tile-row band. Residual dots and the loss are summed over
+both axes, parameter dots go through ``vdot_sharded`` (exposure counted
+once), and Jᵀ·u sums only the exposure leaf over the model axis before the
+data axis's sum; the per-Gaussian cotangents are already owner-resident
+through the exchange's transpose. Jᵀ·u reuses one retained graph, and every
+backward through it replays the exchange's reverse collectives, so every
+rank of a model group calls J·v and Jᵀ·u the same number of times, in the
+same order (CGLS's scalars are all-reduced, so its branches agree).
 """
 
 from __future__ import annotations
@@ -39,8 +47,8 @@ from torch.utils.checkpoint import checkpoint
 
 from gslm_tpu_torch.models import gaussians as G
 from gslm_tpu_torch.models.gaussians import PARAM_GROUPS
-from gslm_tpu_torch.parallel.mesh import (MODEL_AXIS_MESSAGE, all_reduce,
-                                          all_reduce_dict, axis_group)
+from gslm_tpu_torch.parallel.mesh import (all_reduce, all_reduce_dict,
+                                          axis_group)
 from gslm_tpu_torch.solver.residuals import (ResidualState, res_dot,
                                              res_map, res_saxpy)
 
@@ -70,17 +78,25 @@ class LMOperators:
                  alive: torch.Tensor | None = None,
                  reuse_linearization: bool = True,
                  axis_name: str | None = None,
-                 param_axis: str | None = None):
+                 param_axis: str | None = None, mesh=None):
         """``residual_fn`` takes renderable parameters (``GaussianParams``
-        or ``GaussianTensors``); ``params`` is the linearization point."""
-        if param_axis is not None:
-            raise NotImplementedError(
-                f"param_axis={param_axis!r}: {MODEL_AXIS_MESSAGE}")
-        self._group = None if axis_name is None else axis_group(axis_name)
-        if axis_name is not None:
+        or ``GaussianTensors``); ``params`` is the linearization point.
+        ``mesh`` (``parallel.Mesh``) resolves the axis names; without one
+        only ``axis_name="data"`` exists, over the world group."""
+        self._group = None if axis_name is None else axis_group(axis_name,
+                                                                mesh)
+        self._pgroup = None if param_axis is None else axis_group(param_axis,
+                                                                  mesh)
+        axes = tuple(x for x in (axis_name, param_axis) if x)
+        # residuals lie on every axis given
+        self._rgroup = axis_group(axes if len(axes) > 1 else axes[0],
+                                  mesh) if axes else None
+        if axes:
             # bind the collective-aware dot (the static one stays for the
             # single process)
-            self.dot = functools.partial(self._dot_axis, self._group)
+            self.dot = functools.partial(self._dot_axis, self._rgroup,
+                                         param_axis is not None,
+                                         self._pgroup)
         self.residual_fn = residual_fn
         self.params = params
         self._primal = params.groups()
@@ -125,6 +141,10 @@ class LMOperators:
                                     allow_unused=True)
         g = {name: torch.zeros_like(leaves[name]) if d is None else d
              for name, d in zip(PARAM_GROUPS, found)}
+        if self._pgroup is not None:
+            # the replicated exposure's partials lie on every band
+            g["exposure"] = all_reduce([g["exposure"]], "sum",
+                                       self._pgroup)[0]
         if self._group is not None:
             # the ranks' views differ: sum their partials
             g = all_reduce_dict(g, "sum", self._group)
@@ -135,9 +155,9 @@ class LMOperators:
 
     @property
     def loss_scalar(self) -> torch.Tensor:
-        if self._group is not None:
+        if self._rgroup is not None:
             return all_reduce([self.residual.loss_scalar], "sum",
-                              self._group)[0]
+                              self._rgroup)[0]
         return self.residual.loss_scalar
 
     # -- generalized vector algebra, dispatching on space -----------------
@@ -149,11 +169,13 @@ class LMOperators:
         return G.vdot(a, b, damp)
 
     @staticmethod
-    def _dot_axis(group, a, b, damp=1.0):
-        d = LMOperators.dot(a, b, damp)
+    def _dot_axis(rgroup, sharded: bool, pgroup, a, b, damp=1.0):
         if isinstance(a, ResidualState):
-            return all_reduce([d], "sum", group)[0]
-        return d                       # replicated parameters: no collective
+            return all_reduce([LMOperators.dot(a, b, damp)], "sum",
+                              rgroup)[0]
+        if sharded:
+            return G.vdot_sharded(a, b, damp, pgroup)
+        return G.vdot(a, b, damp)      # replicated parameters: no collective
 
     @staticmethod
     def saxpy(alpha, x, y):

@@ -19,13 +19,20 @@ densify and opacity-reset schedule, test / save / checkpoint iterations,
 window. Its own draws (split noise, random backgrounds) come from one
 ``torch.Generator`` seeded 0, which cannot repeat JAX's PRNG.
 
-``--mesh_data N`` trains over N ranks (``parallel``; launched by
-``torchrun --nproc_per_node N``, or in a process group the caller started):
-every rank draws the same window of N views (a multiple of N in
-``--sgd_batch`` mode), renders its block of it and steps through
-``parallel.dp_apply_update``; the state is replicated, density events run
-on every rank from generators seeded alike, and only rank 0 prints and
-writes files (the others wait at a barrier where it writes).
+``--mesh_data N --mesh_model M`` trains over N·M ranks (``parallel``;
+launched by ``torchrun --nproc_per_node N·M``, or in a process group the
+caller started): every rank draws the same window of N views (a multiple
+of N in ``--sgd_batch`` mode) and renders its data-axis block of it. With
+M = 1 the state is replicated and the step is
+``parallel.dp_apply_update``. With M > 1 each rank holds its block of the
+Gaussian rows (``shard_state``), renders its tile-row band
+(``parallel.mp_loss_and_grads`` / ``mp_apply_update``), densifies its
+shard and rebalances rows across the model axis (``make_mp_densify``); the
+state is gathered over the model axis before a test, a save, a checkpoint
+or a viewer frame, as JAX's sharded arrays gather implicitly, and
+``training`` returns this rank's shard. Density events run on every rank
+from generators seeded alike, and only rank 0 prints and writes files (the
+others wait at a barrier where it writes).
 
 Usage: python -m gslm_tpu_torch.train -s <dataset> -m <output> [flags]
 (on the card; ``--platform cpu`` runs on the CPU)
@@ -55,7 +62,8 @@ from gslm_tpu_torch.models.scene import Scene
 from gslm_tpu_torch.optim import (AdamState, adam_step, group_learning_rates,
                                   init_adam)
 from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig
-from gslm_tpu_torch.parallel.mesh import (all_reduce, barrier, make_mesh,
+from gslm_tpu_torch.parallel.mesh import (all_reduce, barrier, gather_state,
+                                          make_mesh,
                                           maybe_initialize_distributed,
                                           shard_cameras, shard_state)
 from gslm_tpu_torch.renderer import batch_render
@@ -78,7 +86,8 @@ def make_raster_config(tpu: cfg_mod.TpuParams, pipe: cfg_mod.PipelineParams,
     live = (live // 256) * 256
     return RasterConfig(dup_capacity=dup, antialiasing=pipe.antialiasing,
                         impl=tpu.raster_impl, cull=tpu.raster_cull,
-                        live_capacity=live)
+                        live_capacity=live,
+                        mp_route_capacity=tpu.mp_route_capacity)
 
 
 def loss_and_grads(params: GaussianParams, cam: CameraBatch,
@@ -201,7 +210,8 @@ def split_noise(gen: torch.Generator, capacity: int, device) -> tuple:
 
 def training(args, *, lm_phase_hook=None):
     """The training loop over ``args`` (``build_parser``'s namespace).
-    Returns ``(scene, params, aux, opt_state)``.
+    Returns ``(scene, params, aux, opt_state)``: on a model axis this
+    rank's shard of the state.
 
     ``lm_phase_hook(scene, params, aux, opt_state, iteration, all_train,
     rcfg, bg)`` runs the iterations from ``--jvp_start`` on and returns
@@ -220,11 +230,12 @@ def training(args, *, lm_phase_hook=None):
             dist_up and torch.distributed.get_world_size() > 1):
         mesh = make_mesh(tpu.mesh_data, tpu.mesh_model)
     main_rank = mesh is None or mesh.is_main
+    mp = mesh is not None and mesh.n_model > 1
     safe_state(getattr(args, "quiet", False) or not main_rank)
     dev = platform_device(platform)
     if mesh is not None:
-        print(f"Data-parallel training over mesh {mesh.shape} "
-              f"({tpu.mesh_data} views/step)")
+        print(f"{'Model' if mp else 'Data'}-parallel training over mesh "
+              f"{mesh.shape} ({tpu.mesh_data} views/step)")
     if getattr(args, "detect_anomaly", False):
         from gslm_tpu_torch.utils.profiling import enable_nan_debugging
         enable_nan_debugging()
@@ -252,8 +263,9 @@ def training(args, *, lm_phase_hook=None):
             load_checkpoint(args.start_checkpoint, device=dev)
         print(f"Restored checkpoint at iteration {first_iter}")
     if mesh is not None:
-        # every rank starts from rank 0's state, bit for bit
-        shard_state(mesh, params, aux, opt_state)
+        # every rank starts from rank 0's state, bit for bit (its block of
+        # rows on a model axis)
+        params, aux, opt_state = shard_state(mesh, params, aux, opt_state)
         barrier(mesh)
 
     train_metas = scene.get_train_cameras()
@@ -275,13 +287,38 @@ def training(args, *, lm_phase_hook=None):
                                    opt.depth_l1_weight_final,
                                    max_steps=opt.iterations)
     sparse = opt.optimizer_type == "sparse_adam"
+    mp_densify = None
     if mesh is None:
         update = apply_update
     else:
-        from gslm_tpu_torch.parallel.steps import dp_apply_update
+        from gslm_tpu_torch.parallel import steps as psteps
+        step_update = psteps.mp_apply_update if mp else \
+            psteps.dp_apply_update
 
         def update(*a, **k):
-            return dp_apply_update(mesh, *a, **k)
+            return step_update(mesh, *a, **k)
+        if mp:
+            mp_densify = psteps.make_mp_densify(mesh)
+
+    def whole_state(with_opt: bool):
+        """The whole parameters (and with ``with_opt`` the statistics and
+        Adam moments) on the main rank: under a model axis its model group
+        gathers them onto it, the other data rows skip; None on every
+        other rank."""
+        if not mp:
+            return (params, aux, opt_state) if main_rank else None
+        if mesh.rank != 0:
+            return None
+        if with_opt:
+            return gather_state(mesh, params, aux, opt_state)
+        whole = gather_state(mesh, params)
+        return None if whole is None else (whole, None, None)
+
+    def n_alive() -> int:
+        n = params.alive.sum()
+        if mp:
+            n = all_reduce([n], "sum", mesh.model_group)[0]
+        return int(n)
 
     writer = None
     try:
@@ -305,6 +342,11 @@ def training(args, *, lm_phase_hook=None):
                                   getattr(args, "port", 6009))
         except OSError as e:
             print(f"Viewer server disabled ({e})")
+    # a model axis gathers the shards for the viewer's frames: every rank
+    # learns whether rank 0 serves one
+    mp_viewer = mp and bool(all_reduce(
+        [torch.tensor(int(viewer is not None), device=dev)], "max",
+        mesh.world_group)[0])
 
     gen = torch.Generator(device=dev).manual_seed(0)
     np_rng = np.random.default_rng(0)
@@ -338,7 +380,19 @@ def training(args, *, lm_phase_hook=None):
                     print(f"\n[ITER {iteration}] wrote profiler trace to "
                           f"{profile_dir}")
             active_sh = min(iteration // 1000, params.sh_degree)
-            if viewer is not None:
+            if mp_viewer:
+                client = viewer is not None and (
+                    viewer.conn is not None or viewer.try_connect())
+                if all_reduce([torch.tensor(int(client), device=dev)], "max",
+                              mesh.world_group)[0]:
+                    shown = whole_state(False)
+                    if viewer is not None:
+                        viewer.poll(shown[0], None, bg_default, rcfg=rcfg,
+                                    active_sh_degree=active_sh,
+                                    source_path=model.source_path,
+                                    training_done=iteration >= opt.iterations)
+                    del shown
+            elif viewer is not None:
                 viewer.poll(params, aux, bg_default, rcfg=rcfg,
                             active_sh_degree=active_sh,
                             source_path=model.source_path,
@@ -354,8 +408,7 @@ def training(args, *, lm_phase_hook=None):
                 ema_loss = 0.4 * loss_f + 0.6 * ema_loss
                 if iteration % 10 == 0:
                     print(f"Training {iteration}/{opt.iterations}: "
-                          f"ValLoss={ema_loss:.7f}, "
-                          f"P={int(params.alive.sum())}")
+                          f"ValLoss={ema_loss:.7f}, P={n_alive()}")
                 iter_ms = iter_timer.tick()
                 if writer is not None and lm_info is not None:
                     writer.add_scalar("train_loss_patches/total_loss",
@@ -409,14 +462,19 @@ def training(args, *, lm_phase_hook=None):
                 # applies once, on the clean attempt (or, degraded, on the
                 # last), so failed attempts never reach the parameters
                 for attempt in range(3):
-                    found = loss_and_grads(
-                        params, cam, bg, dw, rcfg=rcfg, opt=opt,
-                        active_sh_degree=active_sh,
-                        use_exp=model.train_test_exp)
-                    over = torch.amax(found[1]["render"].overflow)
+                    kw = dict(rcfg=rcfg, opt=opt, active_sh_degree=active_sh,
+                              use_exp=model.train_test_exp)
+                    if mp:
+                        found = psteps.mp_loss_and_grads(mesh, params, cam,
+                                                         bg, dw, **kw)
+                        over = found[1]["diags"]["overflow"]
+                    else:
+                        found = loss_and_grads(params, cam, bg, dw, **kw)
+                        over = torch.amax(found[1]["render"].overflow)
                     if mesh is not None:
                         # the same decision on every rank
-                        over = all_reduce([over], "max", mesh.group)[0]
+                        over = all_reduce([over], "max",
+                                          mesh.world_group)[0]
                     clean = int(over) == 0
                     if clean or attempt == 2:
                         params, aux, opt_state, metrics = update(
@@ -438,8 +496,7 @@ def training(args, *, lm_phase_hook=None):
                 ema_loss = 0.4 * loss_f + 0.6 * ema_loss
                 if iteration % 10 == 0:
                     print(f"Training {iteration}/{opt.iterations}: "
-                          f"Loss={ema_loss:.7f}, "
-                          f"P={int(params.alive.sum())}")
+                          f"Loss={ema_loss:.7f}, P={n_alive()}")
                 iter_ms = iter_timer.tick()
                 if writer is not None:
                     writer.add_scalar("train_loss_patches/total_loss", loss_f,
@@ -453,30 +510,36 @@ def training(args, *, lm_phase_hook=None):
             if iteration < opt.densify_until_iter \
                     and iteration > opt.densify_from_iter \
                     and iteration % opt.densification_interval == 0:
-                noise = split_noise(gen, params.capacity, dev)
+                # the whole capacity's draws; a model shard takes its rows
+                capacity = params.capacity * (mesh.n_model if mp else 1)
+                noise = split_noise(gen, capacity, dev)
                 size_thr = 20.0 if iteration > opt.opacity_reset_interval \
                     else 0.0
-                params, aux, opt_state, info = densify_and_prune(
+                params, aux, opt_state, info = (mp_densify or
+                                                densify_and_prune)(
                     params, aux, opt_state, noise, opt.densify_grad_threshold,
                     0.005, scene.cameras_extent, size_thr, opt.percent_dense)
                 del noise
                 if int(info["n_dropped"]) > 0:
                     print(f"\n[ITER {iteration}] capacity full: dropped "
                           f"{int(info['n_dropped'])} densification requests "
-                          f"(capacity={params.capacity})")
+                          f"(capacity={capacity})")
             if iteration < opt.densify_until_iter and (
                     iteration % opt.opacity_reset_interval == 0 or (
                         model.white_background
                         and iteration == opt.densify_from_iter)):
                 params, opt_state = reset_opacity(params, opt_state)
 
+            if iteration in test_iterations | save_iterations \
+                    | ckpt_iterations:
+                whole = whole_state(iteration in ckpt_iterations)
             if iteration in test_iterations and main_rank:
                 stats = {"train": evaluate(
-                    params, aux, all_train.take(slice(0, min(5, len(
+                    whole[0], None, all_train.take(slice(0, min(5, len(
                         train_metas)))), bg_default, rcfg, active_sh,
                     model.train_test_exp)}
                 if all_test is not None:
-                    stats["test"] = evaluate(params, aux, all_test,
+                    stats["test"] = evaluate(whole[0], None, all_test,
                                              bg_default, rcfg, active_sh,
                                              model.train_test_exp)
                 print(f"\n[ITER {iteration}] " + "  ".join(
@@ -486,21 +549,21 @@ def training(args, *, lm_phase_hook=None):
                     for k, v in stats.items():
                         writer.add_scalar(f"{k}/loss_viewpoint_psnr",
                                           v["psnr"], iteration)
-                    _report_extras(writer, params, all_train, bg_default,
+                    _report_extras(writer, whole[0], all_train, bg_default,
                                    rcfg, active_sh, model.train_test_exp,
                                    iteration)
             if iteration in save_iterations:
                 print(f"\n[ITER {iteration}] Saving Gaussians")
                 if main_rank:
-                    scene.save(iteration, params)
+                    scene.save(iteration, whole[0])
                 barrier(mesh)
             if iteration in ckpt_iterations:
                 if main_rank:
                     save_checkpoint(os.path.join(model.model_path,
                                                  f"chkpnt{iteration}.npz"),
-                                    params, aux, opt_state, iteration,
-                                    spatial_lr_scale)
+                                    *whole, iteration, spatial_lr_scale)
                 barrier(mesh)
+            whole = None
     finally:
         profiler.close()
         if viewer is not None:

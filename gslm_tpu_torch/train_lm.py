@@ -12,7 +12,8 @@ overflow. ``main`` is the two-phase command line: ``train.training`` runs
 Adam until ``--jvp_start``, then ``lm_phase`` through its LM hook. With a
 mesh (``--mesh_data N`` over N ranks) the window and the validation views
 are split over the ranks and the step's sums are all-reduced
-(``axis_name="data"``).
+(``axis_name="data"``); with a model axis (``--mesh_model M``) the
+parameters are sharded too and the step is ``parallel.make_mp_lm_step``.
 
 Usage: python -m gslm_tpu_torch.train_lm -s <dataset> -m <output> [flags]
 """
@@ -251,13 +252,19 @@ def lm_phase(scene, params: GaussianParams, aux, all_train: CameraBatch,
     zero-weight views and each rank steps on its contiguous slice
     (``make_dp_lm_step``). Each rank probes its own render units and the
     ranks take the max of their overflow flags, so every rank makes the
-    same grow decisions."""
+    same grow decisions. With a model axis ``params`` is this rank's shard
+    and the step ``make_mp_lm_step``, which renders each rank's window
+    slice and val slice in one pass each: those are its render units, and
+    the probe counts their band records (``band_probe``: the AABB records
+    of the fullest band, and at ``mp_route_capacity`` > 0 the records this
+    shard routes to each band)."""
     alive = params.alive if aux is None else aux.alive
     n = all_train.batch_size
     win = select_window(n, lm.num_images, rng)
     vidx = val_indices(n, lm)
     dev = bg.device
     n_data = 1 if mesh is None else mesh.shape["data"]
+    n_model = 1 if mesh is None else mesh.shape["model"]
 
     def pad_to_chunk(idx):
         """Pad a view-index list to a micro_batch multiple, and on a mesh
@@ -280,30 +287,53 @@ def lm_phase(scene, params: GaussianParams, aux, all_train: CameraBatch,
     val = all_train.take(vidx)
     mine = [window, val]                 # the views this rank renders
     if mesh is not None:
+        from gslm_tpu_torch.parallel import steps as psteps
         from gslm_tpu_torch.parallel.mesh import shard_cameras
-        from gslm_tpu_torch.parallel.steps import make_dp_lm_step
+        from gslm_tpu_torch.parallel.model_raster import band_probe
         mine = [shard_cameras(mesh, c) for c in mine]
 
     def run_step(p, cfg):
         kw = dict(rcfg=cfg, lm=lm, active_sh_degree=active_sh_degree,
                   use_exp=use_exp, lambda_dssim=lambda_dssim)
         if mesh is not None:
-            return make_dp_lm_step(mesh, **kw)(p, alive, window, val, bg,
-                                                win_valid, val_valid)
+            make = psteps.make_mp_lm_step if n_model > 1 else \
+                psteps.make_dp_lm_step
+            return make(mesh, **kw)(p, alive, window, val, bg, win_valid,
+                                    val_valid)
         return lm_outer_step(p, alive, window, val, bg, win_valid, val_valid,
                              **kw)
 
-    # the render units of this rank's views, as lm_outer_step chunks them
-    units = [
-        [list(range(c, c + step)) for c in range(0, cams.batch_size, step)]
-        for cams, step in zip(mine, micro_batches(
-            lm, mine[0].batch_size, mine[1].batch_size))]
+    # the render units of this rank's views, as its step renders them
+    if n_model > 1:
+        units = [[list(range(cams.batch_size))] for cams in mine]
+    else:
+        units = [
+            [list(range(c, c + step)) for c in range(0, cams.batch_size,
+                                                     step)]
+            for cams, step in zip(mine, micro_batches(
+                lm, mine[0].batch_size, mine[1].batch_size))]
 
     def probe(p, cfg) -> bool:
         """True iff any render unit of the window or of the val views (of
-        any rank) would overflow cfg's record capacities."""
+        any rank) would overflow cfg's record capacities (or, on a model
+        axis, the band streams or the routed exchange's)."""
         over = False
         for cams, groups in zip(mine, units):
+            if n_model > 1:
+                out = band_probe(p, cams, config=cfg, mesh=mesh,
+                                 active_sh_degree=active_sh_degree,
+                                 alive_local=alive)
+                band = out["band_aabb"].cpu().numpy()
+                sent = out["sent"].cpu().numpy()
+                for grp in groups:
+                    # the AABB count bounds the live count too
+                    need = int(band[grp].sum(0).max())
+                    over |= (need > cfg.eff_capacity()
+                             or need > cfg.dup_capacity)
+                    if cfg.mp_route_capacity > 0:
+                        over |= (int(sent[grp].sum(0).max())
+                                 > cfg.mp_route_capacity)
+                continue
             out = overflow_probe(p, cams, config=cfg,
                                  active_sh_degree=active_sh_degree,
                                  alive=alive, per_view=True)
@@ -314,7 +344,7 @@ def lm_phase(scene, params: GaussianParams, aux, all_train: CameraBatch,
                          or int(na[grp].sum()) > cfg.dup_capacity)
         if mesh is not None:
             flag = torch.tensor([int(over)], device=dev)
-            over = bool(all_reduce([flag], "max", mesh.group)[0])
+            over = bool(all_reduce([flag], "max", mesh.world_group)[0])
         return over
 
     params0 = params

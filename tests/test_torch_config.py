@@ -115,24 +115,37 @@ def test_get_combined_args_merges_equally(tmp_path, monkeypatch, form):
     ("mesh_model", 2), ("raster_impl", "pallas"),
     ("raster_impl", "tiled")])
 def test_tpu_only_fields_raise(field, value):
-    with pytest.raises(NotImplementedError, match=field.split("_")[0]
-                       if field != "raster_impl" else "impl"):
-        cfg_mod.TpuParams(**{field: value})
+    """The TPU-only fields raise; the model axis's two (``mesh_model``,
+    ``mp_route_capacity``), ported, are read as JAX reads them."""
+    if field in ("mesh_model", "mp_route_capacity"):
+        assert getattr(cfg_mod.TpuParams(**{field: value}), field) == value
+    else:
+        with pytest.raises(NotImplementedError, match=field.split("_")[0]
+                           if field != "raster_impl" else "impl"):
+            cfg_mod.TpuParams(**{field: value})
     # accepted by JAX, and the defaults by both
     j_cfg.TpuParams(**{field: value})
     cfg_mod.TpuParams()
 
 
 def test_mesh_data_is_read():
-    """The data axis is ported: ``mesh_data`` is accepted; the model axis
-    and its exchange capacity raise, naming the item that brings them."""
+    """Both mesh axes are ported: ``mesh_data``, ``mesh_model`` and the
+    model axis's exchange capacity are accepted, and
+    ``make_raster_config`` carries the capacity, as JAX's does."""
+    from gslm_tpu.train import make_raster_config as j_make_raster_config
+    from gslm_tpu_torch.train import make_raster_config
     assert cfg_mod.TpuParams(mesh_data=2).mesh_data == 2
     for kw in ({"mesh_data": 2, "mesh_model": 2}, {"mesh_model": 4},
                {"mp_route_capacity": 256}):
-        with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-            cfg_mod.TpuParams(**kw)
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        RasterConfig(mp_route_capacity=256)
+        tpu = cfg_mod.TpuParams(**kw)
+        assert all(getattr(tpu, k) == v for k, v in kw.items())
+    assert RasterConfig(mp_route_capacity=256).grow().mp_route_capacity == 512
+    tpu = {"mp_route_capacity": 4096, "mesh_model": 2}
+    got = make_raster_config(cfg_mod.TpuParams(**tpu),
+                             cfg_mod.PipelineParams(), 64, 64, 1000)
+    want = j_make_raster_config(j_cfg.TpuParams(**tpu), j_cfg.PipelineParams(),
+                                64, 64, 1000)
+    assert got.mp_route_capacity == want.mp_route_capacity == 4096
 
 
 def test_ignored_fields_are_accepted():

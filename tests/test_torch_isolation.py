@@ -1,7 +1,8 @@
 """gslm_tpu_torch stands alone: it imports neither JAX nor gslm_tpu, nor,
 when its modules are imported, Pillow, OpenCV, torchvision, tqdm or
 TensorBoard (absent where the card is); every module counts, the
-multi-rank ``parallel`` package included; and its entry points never
+multi-rank ``parallel`` package included (its model axis: ``comm``,
+``model_raster``); and its entry points never
 drift onto the CPU unasked (under a process group:
 tests/test_torch_parallel.py::test_mesh_shapes)."""
 
@@ -38,7 +39,8 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 assert {"gslm_tpu_torch.parallel", "gslm_tpu_torch.parallel.mesh",
-        "gslm_tpu_torch.parallel.steps"} <= set(names), names
+        "gslm_tpu_torch.parallel.steps", "gslm_tpu_torch.parallel.comm",
+        "gslm_tpu_torch.parallel.model_raster"} <= set(names), names
 """
 
 
@@ -48,7 +50,7 @@ def test_port_imports_no_jax_and_no_gslm_tpu():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split()[0])
-    assert n_modules >= 56
+    assert n_modules >= 58
 
 
 def test_entry_points_need_a_device_without_cuda(monkeypatch):

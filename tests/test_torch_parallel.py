@@ -81,14 +81,15 @@ def _bitwise_equal_ranks(outs, key):
 
 def test_mesh_shapes(adam_runs):
     """The 1x1 mesh of the single process; (2, 1) and (4, 1) over gloo
-    ranks, the default filling the data axis; a model axis and a mesh that
-    does not fill the world raise; the rank's default device raises
+    ranks, the default filling the data axis, and (1, 2) or (2, 2) with a
+    model axis (tests/test_torch_mp_render.py holds its groups); a mesh
+    that does not fill the world raises; the rank's default device raises
     without CUDA."""
     mesh = make_mesh()
     assert mesh.shape == {"data": 1, "model": 1}
     assert (mesh.rank, mesh.group, mesh.is_main) == (0, None, True)
     assert make_mesh(1, 1) == mesh == make_mesh(n_data=1)
-    with pytest.raises(NotImplementedError, match="model axis"):
+    with pytest.raises(ValueError, match="fill the world"):
         make_mesh(1, 2)
     with pytest.raises(ValueError, match="fill the world"):
         make_mesh(2, 1)
@@ -98,7 +99,8 @@ def test_mesh_shapes(adam_runs):
         for o in outs:
             assert o["shape"] == o["default_shape"] == {"data": world,
                                                         "model": 1}
-            assert o["model_raises"] and o["misfit_raises"]
+            assert o["model_shape"] == {"data": world // 2, "model": 2}
+            assert o["misfit_raises"]
             # under a process group, no CUDA still raises (no drift)
             assert o["device_raises"] == (not o["cuda"])
 

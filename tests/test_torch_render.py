@@ -88,9 +88,14 @@ def test_ref_impl_and_unported_impls(scene):
     ("tile_chunk", 64), ("pack", 8), ("mp_route_capacity", 1024),
     ("chunk_rows", 16)])
 def test_raster_config_rejects_unread_fields(field, value):
-    """A field the port does not read yet raises instead of being ignored."""
-    with pytest.raises(NotImplementedError, match=field):
-        RasterConfig(**{field: value})
+    """A field the port does not read yet raises instead of being ignored;
+    ``mp_route_capacity``, the model axis's exchange capacity, is read
+    (``parallel/model_raster.py``) and accepted."""
+    if field == "mp_route_capacity":
+        assert RasterConfig(**{field: value}).mp_route_capacity == value
+    else:
+        with pytest.raises(NotImplementedError, match=field):
+            RasterConfig(**{field: value})
     assert not hasattr(RasterConfig(), "max_per_tile")
 
 
