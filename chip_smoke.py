@@ -238,7 +238,25 @@ failed phase exits non-zero:
    C 4, E 6} per LM step. Prints per rank each step against the single
    process, the exchanges' and the reduce-scatter's times and bytes, the
    busy share, the peak memory and the launches.
-15. a ``{"kernels": [...]}`` line, then the last line
+15. the quality harness (cell quality-small-64, ``tools/quality.py``):
+   Adam with densification from a sparse noisy start to a plateau, then
+   200 more Adam steps against the LM steps that cost as many renders
+   (windows of 3 views, 3 validation views, CG 2, 7 alphas, xyz free),
+   at the JAX package's slow-test size (400 rich Gaussians, 60 to start
+   in 1,024 slots, 6 views of 64x64, 1,400 Adam iterations, density
+   events to 900), for seed 0 alone: one seed takes 209-359 s on the
+   card, three would take the script past its time limit, and the tool
+   runs the three. It runs in a process of its own, started before phase
+   11 and joined after phase 14 (all host-bound, the card mostly idle),
+   so its walls and those of phases 11-14 include the sharing. Checks:
+   no Adam step overflowed; the plateau more than 8 dB above the start
+   and above 24 dB with more than 300 Gaussians alive; LM gain > 0.1 dB
+   and > Adam gain − 0.05 dB; launches
+   {A 1, B 2, C 1} per Adam step and ``lm_launch_rule``'s per LM step;
+   kernels A, B and C on an Adam step's inputs at seed 0's plateau and E
+   on its first LM step's against their plain versions. Prints the
+   plateau, gains, phase times, launches and largest tile loads.
+16. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of gslm_tpu. It finds the package beside itself
@@ -1099,12 +1117,21 @@ def run(dev, n_gauss: int, height: int, width: int) -> None:
         src = scene_phase(dev, n_gauss, height, width, tag, kernels, root)
         adam_ms = cli_phase(dev, n_gauss, height, width, tag, kernels, src,
                             root)
-        model = depth_phase(dev, n_gauss, height, width, tag, kernels, src,
-                            root, adam_ms)
-        lpips_parity_phase(dev, tag, kernels, model, root)
-        dp_phase(dev, n_gauss, height, width, tag, kernels, src, root, lm_ref)
-        mp_phase(dev, n_gauss, M1_N, height, width, tag, kernels, src, root,
-                 lm_ref)
+        quality = quality_start(dev, tag, root)   # phase 15, beside 11-14
+        try:
+            model = depth_phase(dev, n_gauss, height, width, tag, kernels,
+                                src, root, adam_ms)
+            lpips_parity_phase(dev, tag, kernels, model, root)
+            dp_phase(dev, n_gauss, height, width, tag, kernels, src, root,
+                     lm_ref)
+            mp_phase(dev, n_gauss, M1_N, height, width, tag, kernels, src,
+                     root, lm_ref)
+            quality_finish(quality, tag, kernels)
+        finally:
+            for p in quality[0].processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
     for entry, k in zip(kernels, "ABCDE"):
         if k in attrs:
             entry["attrs"] = attrs[k]
@@ -5277,6 +5304,187 @@ def mp_phase(dev, n_gauss: int, m1_n: int, height: int, width: int,
             entry["launches"] += n
     print(f"{tag} phase 14 wall {time.perf_counter() - t_phase:.1f} s",
           flush=True)
+
+
+QUALITY_SEED = 0               # the first of the JAX slow test's seeds
+QUALITY_TIMEOUT = 600.0        # phase 15's join timeout after phase 14 (s)
+# the JAX slow test's LM (tests/test_quality.py:56-59)
+QUALITY_LM = dict(num_images=3, num_val_views=3, val_view_stride=1,
+                  cg_max_iter=2, cg_restart_iter=1, line_search_steps=6,
+                  mask_xyz=False)
+QUALITY_ADAM_LAUNCHES = {"A": 1, "B": 2, "C": 1, "E": 0}
+
+
+def lm_launch_rule(lm, nwin: int, nval: int) -> dict:
+    """Kernel launches of one ``lm_outer_step`` over ``nwin`` window and
+    ``nval`` validation views, read off the code: the window renders in
+    ``micro_batches`` chunks, each J·v (kernel E) and Jᵀ·u (kernel C) once
+    per chunk; ``cgls_damped_unrolled`` runs ceil(max_iter / restart_iter)
+    restart blocks, each one J·v and one Jᵀ·u, and per iteration one of
+    each plus a J·v for the divergence check; the linearization renders
+    the window once (A per chunk) and the line search renders the
+    validation chunks once per alpha (A per chunk); B never, the residual
+    having no SSIM term. Counted for the plain line search and
+    ``disable_ssim`` only (checked)."""
+    from gslm_tpu_torch.train_lm import micro_batches
+    check(lm.ls_subset_views == 0 and lm.ls_val_scale == 1
+          and lm.disable_ssim, "lm_launch_rule counts the plain line "
+          "search without the SSIM residual only")
+    mb, val_mb = micro_batches(lm, nwin, nval)
+    chunks, val_chunks = nwin // mb, nval // val_mb
+    blocks = -(-lm.cg_max_iter // lm.cg_restart_iter)
+    jvps = blocks + lm.cg_max_iter * (2 if lm.check_divergence else 1)
+    return {"A": chunks + (lm.line_search_steps + 1) * val_chunks, "B": 0,
+            "C": chunks * (blocks + lm.cg_max_iter), "E": chunks * jvps}
+
+
+def quality_body(dev, tag: str) -> dict:
+    """Phase 15: the quality harness at its small size for seed 0, driven
+    through ``tools.quality.run_one`` (cell quality-small-64), with its
+    checks; prints its lines. Returns the launches of the run (``totals``)
+    and the kernels' max |Δ| from plain on the plateau (``errs``)."""
+    from gslm_tpu_torch import train as T
+    from gslm_tpu_torch.config import LMParams
+    from gslm_tpu_torch.tools import quality as Q
+
+    size = Q.SIZES["small"]
+    lm = LMParams(**QUALITY_LM)
+    n_lm = max(1, round(size["extra"] / Q.lm_cost_in_adam_steps(lm)))
+    lm_want = lm_launch_rule(lm, lm.num_images, lm.num_val_views)
+    want = {"adam": {k: size["iters"] * v
+                     for k, v in QUALITY_ADAM_LAUNCHES.items()},
+            "adam_extra": {k: size["extra"] * v
+                           for k, v in QUALITY_ADAM_LAUNCHES.items()},
+            "lm": {k: n_lm * v for k, v in lm_want.items()}}
+    print(f"{tag} 15 quality harness at {size['kw']}: {size['iters']} Adam "
+          f"iterations (events to {size['dens_until']}), then +"
+          f"{size['extra']} Adam vs {n_lm} LM steps (one costs "
+          f"{Q.lm_cost_in_adam_steps(lm):.2f} Adam steps); launches per LM "
+          f"step by the code {lm_want}", flush=True)
+    zero_launches()
+    t0 = time.perf_counter()
+    with jvp_inputs() as e_in:        # the first LM step's first J·v
+        r = Q.run_one(QUALITY_SEED, size["kw"], size["iters"],
+                      size["dens_until"], size["extra"], lm=lm, device=dev,
+                      profile=False)
+    wall = time.perf_counter() - t0
+    totals = launches()
+    sec = {k: round(v, 2) for k, v in r["seconds"].items()}
+    d_adam, d_lm = r["adam"] - r["plateau"], r["lm"] - r["plateau"]
+    s = f"seed {QUALITY_SEED}"
+    print(f"{tag} 15 {s}: init {r['init']:.3f} dB, plateau "
+          f"{r['plateau']:.3f} dB ({r['alive']} alive), Adam +"
+          f"{size['extra']} {d_adam:+.3f} dB, LM +{r['n_lm']} {d_lm:+.3f} "
+          f"dB, LM − Adam {d_lm - d_adam:+.3f} dB; overflowed Adam steps "
+          f"{r['overflowed']}; wall {wall:.1f} s, by phase (s) {sec}, per "
+          f"Adam step {1e3 * r['seconds']['adam'] / size['iters']:.2f} ms, "
+          f"per LM step {1e3 * r['seconds']['lm'] / r['n_lm']:.1f} ms; "
+          f"launches {r['launches']}, in all {totals}; records per tile at "
+          f"most {r['max_tile_load']} (ground truth, plateau)", flush=True)
+    check(r["overflowed"] == 0, f"15 {s}: {r['overflowed']} Adam steps "
+          f"overflowed")
+    check(r["plateau"] > r["init"] + 8.0, f"15 {s}: plateau "
+          f"{r['plateau']:.3f} not 8 dB above the start {r['init']:.3f}")
+    check(r["plateau"] > 24.0, f"15 {s}: plateau {r['plateau']:.3f} dB")
+    check(r["alive"] > 300, f"15 {s}: {r['alive']} alive")
+    check(r["n_lm"] == n_lm, f"15 {s}: {r['n_lm']} LM steps")
+    for ph, w in want.items():
+        got = {k: r["launches"][ph][k] for k in w}
+        check(got == w, f"15 {s}: launches of {ph} {got}, expected {w}")
+    check(d_lm > 0.1, f"15 {s}: LM gain {d_lm:.3f} dB")
+    check(d_lm > d_adam - 0.05, f"15 {s}: LM gain {d_lm:.3f} dB against "
+          f"Adam's {d_adam:.3f}")
+
+    # A, B and C on an Adam step's own inputs at the plateau (a densified
+    # scene), E on its first LM step's; the counts are read above
+    params, _, cams, rcfg, bg = r["state"]
+    with backward_inputs() as c_in, blur_inputs() as b_in:
+        T.loss_and_grads(params, cams.take(slice(0, 1)), bg, 0.0, rcfg=rcfg,
+                         opt=T.OptimizationParams(), active_sh_degree=0,
+                         use_exp=False)
+    errs = step_vs_plain(f"quality plateau, {s}, view 0", c_in[0], b_in)
+    rec, tng, st, cn, ntx, nty = e_in[0][:6]
+    errs["E"] = e_vs_plain(f"quality plateau, {s}, the first LM step's "
+                           f"window", rec, tng, st, cn, ntx, nty)["err"]
+    return {"totals": totals, "errs": {k: float(v) for k, v in errs.items()}}
+
+
+def quality_worker(_: int, out_dir: str, dev_type: str, tag: str) -> None:
+    """Phase 15's process, spawned: ``quality_body`` on cuda:0 (or the CPU,
+    to rehearse) with its lines in ``out_dir``/quality.log and its result
+    in quality.json (its traceback in quality.err)."""
+    import traceback
+
+    import torch
+    dev = torch.device("cuda", 0) if dev_type == "cuda" else \
+        torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    saved = sys.stdout
+    try:
+        with open(os.path.join(out_dir, "quality.log"), "w") as log:
+            sys.stdout = log
+            res = quality_body(dev, tag)
+        with open(os.path.join(out_dir, "quality.json"), "w") as f:
+            json.dump(res, f)
+    except BaseException:
+        with open(os.path.join(out_dir, "quality.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        sys.stdout = saved
+
+
+def quality_start(dev, tag: str, root: str):
+    """Starts phase 15 in a process of its own, to run beside phases 11-14:
+    all of them are host-bound with the card mostly idle, and one seed of
+    the harness takes 209-359 s alone. Returns what ``quality_finish``
+    takes."""
+    import torch.multiprocessing as mp
+    out_dir = os.path.join(root, "quality")
+    os.makedirs(out_dir)
+    ctx = mp.start_processes(quality_worker, args=(out_dir, dev.type, tag),
+                             nprocs=1, join=False, start_method="spawn")
+    return ctx, out_dir, time.perf_counter()
+
+
+def quality_finish(started, tag: str, kernels: list[dict]) -> None:
+    """Waits for phase 15's process (``quality_start``), prints its lines,
+    raises on its failure and adds its launches and errors to the kernel
+    entries in ``kernels``."""
+    from torch.multiprocessing.spawn import ProcessException
+
+    ctx, out_dir, t_phase = started
+    deadline = time.monotonic() + QUALITY_TIMEOUT
+    try:
+        while not ctx.join(timeout=1.0):
+            check(time.monotonic() < deadline,
+                  f"phase 15 still running {QUALITY_TIMEOUT} s after "
+                  f"phase 14")
+    except ProcessException as e:
+        err = pathlib.Path(out_dir, "quality.err")
+        raise RuntimeError("phase 15 failed:\n" + (
+            err.read_text() if err.exists() else "")) from e
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        log = pathlib.Path(out_dir, "quality.log")
+        if log.exists():
+            print(log.read_text(), end="", flush=True)
+    with open(os.path.join(out_dir, "quality.json")) as f:
+        res = json.load(f)
+    for entry, k in zip(kernels, "ABCDE"):
+        entry["launches_by_path"]["quality_small_64"] = res["totals"][k]
+        entry["launches"] += res["totals"][k]
+        if k in res["errs"]:
+            entry["max_abs_err_quality"] = res["errs"][k]
+    print(f"{tag} phase 15 wall {time.perf_counter() - t_phase:.1f} s, "
+          f"started before phase 11", flush=True)
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -51,6 +51,7 @@ from gslm_tpu_torch.utils.synthetic import ring_camera_batch
 from tests.test_torch_grad import _bounded, _stack_params, _to_port
 # pytest puts tests/ on sys.path (see tests/test_torch_bwd_patch.py)
 from test_torch_bucket_bwd_patch import _kernel_d
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 BG = np.zeros(3, np.float32)
 CAP = 1 << 14

@@ -46,6 +46,7 @@ from gslm_tpu_torch.utils.synthetic import make_camera, random_gaussians
 # pytest puts tests/ on sys.path (see tests/test_torch_bwd_patch.py)
 from test_torch_bwd_patch import FIELDS, _tile_sums, knife_edge, to_jax
 from test_torch_fwd_patch import BG, CAP
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def _kernel_d(rec, rects, bstarts, bcounts, ntx, nty, view_rows, bk,

@@ -50,6 +50,7 @@ from gslm_tpu_torch.utils.synthetic import make_camera, random_gaussians
 # the name ``tests.patch_cases``
 from patch_cases import adversarial_records
 from test_torch_fwd_patch import BG, CAP, _kernel_a
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 FIELDS = ("mean2d", "conic", "color", "opacity", "invdepth")
 

@@ -30,6 +30,7 @@ from gslm_tpu_torch.ops.rasterize_cuda import (composite_tiles,
 from gslm_tpu_torch.ops.rasterize_ref import rasterize_ref
 from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig
 from tests.synthetic_scene import blob_params
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 CAP = 1 << 12
 

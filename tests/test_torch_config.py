@@ -17,6 +17,7 @@ from gslm_tpu_torch import train as t_train
 from gslm_tpu_torch.eval import metrics as t_metrics
 from gslm_tpu_torch.eval import render_sets as t_render_sets
 from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 GROUPS = ("model", "pipeline", "opt", "lm", "tpu")
 

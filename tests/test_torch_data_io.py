@@ -45,6 +45,7 @@ from gslm_tpu_torch.models.scene import Scene, load_gaussians
 from gslm_tpu_torch.ops.knn import mean_sq_dist_3nn
 from gslm_tpu_torch.utils.graphics import fov2focal, rotmat2qvec
 from gslm_tpu_torch.utils.synthetic import make_camera
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 MODES = {"L": 1, "LA": 2, "RGB": 3, "RGBA": 4}   # colour types 0, 4, 2, 6
 

@@ -31,6 +31,7 @@ from gslm_tpu_torch.models.gaussians import (PARAM_GROUPS, GaussianAux,
                                              params_from_numpy)
 from gslm_tpu_torch.optim import AdamState, zero_state_group, zero_state_rows
 from gslm_tpu_torch.utils.graphics import qvec2rotmat
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 AUX = ("max_radii2d", "xyz_gradient_accum", "denom")
 

@@ -33,6 +33,7 @@ from gslm_tpu_torch.models.scene import load_camera_pixels
 from gslm_tpu_torch.tools import make_depth_scale as mds
 from gslm_tpu_torch.utils.graphics import fov2focal, qvec2rotmat, rotmat2qvec
 from gslm_tpu_torch.utils.synthetic import make_camera
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 CHANNELS = {"grey": 1, "grey+alpha": 2, "RGB": 3, "RGBA": 4}
 

@@ -24,6 +24,7 @@ from gslm_tpu_torch.data.png import read_png
 from gslm_tpu_torch.eval import full_eval
 from gslm_tpu_torch.eval.metrics import evaluate
 from gslm_tpu_torch.eval.render_sets import main as render_sets_main
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

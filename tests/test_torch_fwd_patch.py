@@ -45,6 +45,7 @@ from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig
 # pytest puts tests/ on sys.path; an installed ``tests`` package can shadow
 # the name ``tests.patch_cases``
 from patch_cases import KINDS, adversarial_records, pair_contributes
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 CAP = 1 << 14
 BG = np.array([0.2, 0.5, 0.8], np.float32)

@@ -47,6 +47,7 @@ from gslm_tpu_torch.ops.rasterize_cuda import (composite_tiles,
                                                rasterize_cuda, tile_records)
 from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig
 from tests.synthetic_scene import blob_params
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 CAP = 1 << 12
 FIELDS = ("mean2d", "conic", "color", "opacity", "invdepth")

@@ -32,6 +32,7 @@ from gslm_tpu_torch.models.gaussians import (PARAM_GROUPS, params_from_numpy,
 from gslm_tpu_torch.ops.knn import mean_sq_dist_3nn
 from gslm_tpu_torch.ops.projection import preprocess
 from gslm_tpu_torch.utils import general, image
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 FLOAT_FIELDS = ("mean2d", "conic", "color", "opacity", "depth", "invdepth")
 INT_FIELDS = ("radius", "rect_min", "rect_max", "tile_count", "visible")

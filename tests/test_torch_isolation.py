@@ -2,7 +2,8 @@
 when its modules are imported, Pillow, OpenCV, torchvision, tqdm or
 TensorBoard (absent where the card is); every module counts, the
 multi-rank ``parallel`` package included (its model axis: ``comm``,
-``model_raster``); and its entry points never
+``model_raster``) and the quality harness (``tools.quality``); and its
+entry points never
 drift onto the CPU unasked (under a process group:
 tests/test_torch_parallel.py::test_mesh_shapes)."""
 
@@ -13,6 +14,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -40,7 +42,8 @@ print(len(names), bad)
 assert not bad, bad
 assert {"gslm_tpu_torch.parallel", "gslm_tpu_torch.parallel.mesh",
         "gslm_tpu_torch.parallel.steps", "gslm_tpu_torch.parallel.comm",
-        "gslm_tpu_torch.parallel.model_raster"} <= set(names), names
+        "gslm_tpu_torch.parallel.model_raster",
+        "gslm_tpu_torch.tools.quality"} <= set(names), names
 """
 
 
@@ -50,7 +53,7 @@ def test_port_imports_no_jax_and_no_gslm_tpu():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split()[0])
-    assert n_modules >= 58
+    assert n_modules >= 59
 
 
 def test_entry_points_need_a_device_without_cuda(monkeypatch):

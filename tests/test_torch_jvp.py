@@ -61,6 +61,7 @@ from gslm_tpu_torch.utils.synthetic import ring_camera_batch
 from tests.test_torch_grad import CAP, _bounded, _scene, _to_port
 from tests.test_torch_lm import N, _close, _j, _jcfg, _t, _vec
 from tests.test_torch_lm import lm_scene  # noqa: F401 (a fixture)
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 H, W, VIEWS = 48, 64, 2
 

@@ -43,6 +43,7 @@ from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig
 from patch_cases import adversarial_records
 from test_torch_bwd_patch import knife_edge, port_case, segments, to_jax
 from test_torch_fwd_patch import BG, CAP, _kernel_a
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 FIELDS = ("mean2d", "conic", "color", "opacity", "invdepth")
 

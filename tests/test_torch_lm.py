@@ -48,6 +48,7 @@ from gslm_tpu_torch.solver.residuals import (ResidualState, batch_residuals,
 from gslm_tpu_torch.train_lm import (downscale_val_batch, lm_outer_step,
                                      lm_phase, select_window, val_indices)
 from gslm_tpu_torch.utils.synthetic import ring_camera_batch
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 H, W, NVIEWS, CAP = 48, 64, 6, 1 << 13
 N, CAPACITY = 200, 224          # the last 24 slots are dead

@@ -29,6 +29,7 @@ from gslm_tpu_torch.eval import lpips
 from gslm_tpu_torch.eval.metrics import evaluate_dir, main as metrics_main
 from gslm_tpu_torch.tools import export_lpips_weights as export
 from chip_smoke import write_lpips_weights
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 REL = 1e-5
 

@@ -34,6 +34,7 @@ from gslm_tpu_torch.models.gaussians import PARAM_GROUPS
 from gslm_tpu_torch.train_lm import lm_outer_step
 from torch_ranks import (LM, LM_PADDED, RCFG, STEP_KW, TINY, mp_lm_worker,
                          run_ranks, state_dict, tiny_scene)
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -44,6 +44,7 @@ from gslm_tpu_torch.parallel.model_raster import exchange_bytes
 from gslm_tpu_torch.renderer import batch_render, overflow_probe
 from torch_ranks import (DENSIFY_ARGS, RCFG, RCFG_ROUTE, RENDER_BG, TINY,
                          mp_state_worker, odd_params, run_ranks, tiny_scene)
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 J_RCFG = JRasterConfig(dup_capacity=1 << 12)
 MU_SEED = 7

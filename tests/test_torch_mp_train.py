@@ -36,6 +36,7 @@ from gslm_tpu_torch.models.gaussians import PARAM_GROUPS
 from gslm_tpu_torch.train import train_step
 from torch_ranks import (ADAM_KW, RCFG, TINY, mp_adam_worker, run_ranks,
                          state_dict, tiny_scene)
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 GROUPS = ("xyz", "scaling", "opacity", "rotation", "exposure")
 

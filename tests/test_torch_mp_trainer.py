@@ -43,9 +43,10 @@ from gslm_tpu_torch import train_lm, train_sgd
 from gslm_tpu_torch.checkpoint import load_checkpoint
 from gslm_tpu_torch.models.gaussians import PARAM_GROUPS
 from test_torch_trainer import (ITERS, LINEAGE_ROWS, _argv, _assert_params,
-                                _run_jax)
+                                _restore_stdout, _run_jax)
 from tests.synthetic_scene import build_colmap_scene
 from torch_ranks import mp_trainer_worker, run_ranks
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 CAPACITY = 256
 N_MODEL = 2
@@ -121,7 +122,7 @@ def runs(tmp_path_factory):
                                                  / f"chkpnt{ITERS}.npz"),
                             **LM_FLAGS))
     finally:
-        sys.stdout = saved
+        _restore_stdout(saved)
         mp.undo()
     return root, ranks, jrun, events, lm_infos
 

@@ -36,6 +36,7 @@ from gslm_tpu_torch.parallel import make_mesh, maybe_initialize_distributed
 from gslm_tpu_torch.train import train_step
 from torch_ranks import (ADAM_KW, RCFG, TINY, adam_worker, free_port,
                          run_ranks, state_dict, tiny_scene)
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 WORLDS = (2, 4)
 

@@ -34,6 +34,7 @@ from gslm_tpu_torch.train_lm import lm_outer_step, lm_phase
 from torch_ranks import (LM, LM_PADDED, RCFG, STEP_KW, TINY, info_dict,
                          lm_phase_worker, lm_worker, run_ranks, state_dict,
                          tiny_scene)
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 PAD = [0, 1, 2, 0]
 LM_PHASE = dict(num_images=2, micro_batch=2, num_val_views=4,

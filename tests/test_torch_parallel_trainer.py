@@ -33,9 +33,10 @@ import jax
 from gslm_tpu_torch import train_sgd
 from gslm_tpu_torch.models.gaussians import PARAM_GROUPS
 from test_torch_trainer import (ITERS, LINEAGE_ROWS, _argv, _assert_params,
-                                _files, _run_jax)
+                                _files, _restore_stdout, _run_jax)
 from tests.synthetic_scene import build_colmap_scene
 from torch_ranks import run_ranks, trainer_worker
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 CAPACITY = 256
 
@@ -66,7 +67,7 @@ def mesh_runs(scene_src, tmp_path_factory):
         jrun = _run_jax(mp, _argv(src, str(root / "jax"), mesh_data=2),
                         rec=False)
     finally:
-        sys.stdout = saved
+        _restore_stdout(saved)
         mp.undo()
     ranks = run_ranks(trainer_worker, 2,
                       _argv(src, str(root / "port"), mesh_data=2),

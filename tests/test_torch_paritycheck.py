@@ -19,6 +19,7 @@ import torch
 
 from gslm_tpu.utils import paritycheck as j_pc
 from gslm_tpu_torch.utils import paritycheck as pc
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def test_variants_are_jax_minus_the_tpu_ones():

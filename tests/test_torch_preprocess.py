@@ -23,6 +23,7 @@ from gslm_tpu_torch.ops import sh as t_sh
 from gslm_tpu_torch.ops.projection import preprocess as t_preprocess
 from gslm_tpu_torch.utils.synthetic import make_camera, random_gaussians
 from gslm_tpu_torch.utils.synthetic import ring_camera_batch
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 FLOAT_FIELDS = ("mean2d", "conic", "color", "opacity", "depth", "invdepth")
 INT_FIELDS = ("radius", "rect_min", "rect_max", "tile_count", "visible")

@@ -27,6 +27,7 @@ from gslm_tpu_torch.models.gaussians import PARAM_GROUPS, params_from_numpy
 from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig
 from gslm_tpu_torch.renderer import batch_render, render
 from gslm_tpu_torch.utils.synthetic import ring_camera_batch
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 H, W, B, N, CAPACITY = 48, 64, 2, 200, 224
 BG = np.array([0.2, 0.5, 0.8], np.float32)

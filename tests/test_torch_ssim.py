@@ -26,6 +26,7 @@ from gslm_tpu.utils.image import psnr as j_psnr
 from gslm_tpu_torch.ops.blur_cuda import blur, blur_plain, blur_same
 from gslm_tpu_torch.ops.ssim import gaussian_taps, ssim, ssim_map
 from gslm_tpu_torch.utils.image import mse, psnr
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def _images(seed, shape=(3, 40, 72)):

@@ -22,6 +22,7 @@ from gslm_tpu_torch.ops import rasterize_tiled as trt
 from gslm_tpu_torch.ops.projection import preprocess as t_preprocess
 from gslm_tpu_torch.renderer import stack_views
 from gslm_tpu_torch.utils.synthetic import ring_camera_batch
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 H, W = 48, 64
 NTX, NTY = 4, 3

@@ -21,6 +21,7 @@ from PIL import Image
 from gslm_tpu.tools import convert as j_convert
 from gslm_tpu_torch.data.png import read_png
 from gslm_tpu_torch.tools import convert
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 _STUB = """#!{python}
 import json, os, shutil, sys

@@ -49,6 +49,7 @@ from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig
 from gslm_tpu_torch.train import loss_and_grads, make_raster_config, train_step
 from gslm_tpu_torch.utils.general import expon_lr, get_expon_lr_func
 from gslm_tpu_torch.utils.synthetic import make_camera
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 STEPS = [0, 1, 7, 100, 999, 5000, 15000, 29999, 30000, 45000, -3]
 

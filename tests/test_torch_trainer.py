@@ -45,6 +45,7 @@ import jax
 
 import gslm_tpu.config as j_cfg
 import gslm_tpu.train as j_train
+import gslm_tpu.utils.general as j_general
 from gslm_tpu.checkpoint import load_checkpoint as j_load_checkpoint
 from gslm_tpu.data.ply import load_gaussians_ply as j_load_ply
 from gslm_tpu.train_sgd import select_window as j_select_window
@@ -55,6 +56,7 @@ from gslm_tpu_torch.data.ply import load_gaussians_ply
 from gslm_tpu_torch.models.gaussians import PARAM_GROUPS
 from gslm_tpu_torch.train_sgd import select_window
 from tests.synthetic_scene import build_colmap_scene
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 ITERS = 14
 STEPS = 0.1
@@ -64,13 +66,25 @@ LINEAGE_ROWS, LINEAGE_STEPS = 4, 2.5
 C0 = 0.28209479177387814
 
 
+def _restore_stdout(saved):
+    """Put ``saved`` back on sys.stdout after a ``training`` (both packages'
+    safe_state wrap it for the rest of the process), and forget the stream
+    JAX's safe_state wrapped first: it keeps that stream in a module global
+    (``_SAFE_STATE_ORIG``), so a later JAX ``training`` in the same process
+    would print to it whatever sys.stdout is then, e.g. past a test's
+    capture buffer into the stream of the test that ran JAX first."""
+    sys.stdout = saved
+    j_general._SAFE_STATE_ORIG = None
+
+
 @pytest.fixture(autouse=True)
 def _keep_stdout():
-    """``training`` wraps sys.stdout for the rest of the process
-    (safe_state): put the original back after each test."""
+    """Each test starts and ends with the process's stdout state as it was:
+    sys.stdout put back and JAX's safe_state unpinned (``_restore_stdout``)."""
     saved = sys.stdout
+    j_general._SAFE_STATE_ORIG = None
     yield
-    sys.stdout = saved
+    _restore_stdout(saved)
 
 
 @pytest.fixture(scope="module")
@@ -134,9 +148,13 @@ def _run_jax(monkeypatch, argv, rec=True):
     parser = j_train.build_parser()
     args = parser.parse_args(argv)
     args.save_iterations.append(args.iterations)
-    with monkeypatch.context() as m:
-        r = _Record(m, j_train, "train_step") if rec else None
-        scene, params, aux, opt_state = j_train.training(args)
+    saved = sys.stdout
+    try:
+        with monkeypatch.context() as m:
+            r = _Record(m, j_train, "train_step") if rec else None
+            scene, params, aux, opt_state = j_train.training(args)
+    finally:
+        _restore_stdout(saved)
     return r, scene, params, aux, opt_state
 
 

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 import gslm_tpu.train as j_train
+import gslm_tpu.utils.general as j_general
 from gslm_tpu.train_lm import select_window as j_lm_window
 from gslm_tpu_torch import train as t_train
 from gslm_tpu_torch import train_lm as t_train_lm
@@ -38,6 +39,8 @@ from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig
 from gslm_tpu_torch.renderer import overflow_probe
 from gslm_tpu_torch.utils.general import safe_state
 from tests.synthetic_scene import build_colmap_scene
+from tests.test_torch_trainer import MOMENT_TOL, _restore_stdout
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 STEP_ATOL = 1e-5
 STARVED = 128     # records: below every train view's 162-185, above half
@@ -46,10 +49,15 @@ STARVED = 128     # records: below every train view's 162-185, above half
 @pytest.fixture(autouse=True)
 def _keep_stdout():
     """``training`` wraps sys.stdout for the rest of the process
-    (safe_state): put the original back after each test."""
+    (safe_state), and JAX's safe_state keeps the first stream it wrapped
+    in a module global: each test starts with that global cleared and ends
+    with both put back (``tests/test_torch_trainer.py::_restore_stdout``).
+    Else a JAX ``training`` run earlier in the process, under pytest's
+    stream, would send this file's JAX output past ``_capture``."""
     saved = sys.stdout
+    j_general._SAFE_STATE_ORIG = None
     yield
-    sys.stdout = saved
+    _restore_stdout(saved)
 
 
 @pytest.fixture(scope="module")
@@ -133,6 +141,71 @@ def test_retried_iteration_applies_adam_once(scene_dir, tmp_path):
         assert torch.equal(getattr(gp, g), getattr(tp, g)), g
         assert torch.equal(gopt.mu[g], topt.mu[g]), g
         assert torch.equal(gopt.nu[g], topt.nu[g]), g
+
+
+# the loop flags no other test holds against JAX: each case runs JAX's
+# loop with the flag for 7 iterations, checkpoint at 6 (from checkpoint 3
+# the rotation knife edge of test_torch_trainer.py's docstring still shows
+# past FLAG_STEPS), then resumes both packages from it for iteration 7
+# with the same --iterations, so that JAX's resumed run reuses its loop's
+# compiled step (OptimizationParams, a static argument, holds
+# ``iterations``); at the capacity of the retried test's second attempt,
+# whose compiled parts JAX's loops reuse
+LOOP_FLAGS = {"white_background": ["--white_background"],
+              "train_test_exp": ["--train_test_exp"],
+              "antialiasing": ["--antialiasing"],
+              "sparse_adam": ["--optimizer_type", "sparse_adam"]}
+FLAG_CHECKPOINT = 6
+FLAG_STEPS = 5e-4       # learning rates, off the colour knife edge
+
+
+@pytest.mark.parametrize("flag", list(LOOP_FLAGS))
+def test_loop_flag_iterations_match_jax(scene_dir, tmp_path, flag):
+    """One loop flag, one iteration: JAX's ``training`` writes checkpoint
+    6; from it both packages' ``training`` run iteration 7. A whole loop
+    with these flags drifts apart on the colour knife edge (ROADMAP §3),
+    so the iteration starts from JAX's own state, as
+    ``test_resume_across_packages`` does. Held: the step and ``alive``
+    exactly; every parameter within ``FLAG_STEPS`` of its group's learning
+    rate at that iteration of JAX's (1.2e-4 measured), but on the colour
+    channels at the colour clamp's 0 in the checkpoint (the module's knife
+    edge), where one learning rate more is allowed (0.51 measured); the
+    moments within ``MOMENT_TOL`` of the group's largest |JAX| off that
+    edge."""
+    k = FLAG_CHECKPOINT
+    extra = LOOP_FLAGS[flag] + ["--iterations", k + 1, "--dup_capacity",
+                                2 * STARVED]
+    root = tmp_path / "jax"
+    _capture(lambda: j_train.training(j_train.build_parser().parse_args(
+        _argv(scene_dir, str(root), "--checkpoint_iterations", k, *extra))))
+    ck = str(root / f"chkpnt{k}.npz")
+    argv = _argv(scene_dir, str(tmp_path / "port"), "--start_checkpoint", ck,
+                 *extra)
+    (scene, tp, _, topt), _ = _capture(lambda: t_train.main(argv))
+    jargs = j_train.build_parser().parse_args(_argv(
+        scene_dir, str(tmp_path / "jax_resumed"), "--start_checkpoint", ck,
+        *extra))
+    (_, jp, jaux, jopt), _ = _capture(lambda: j_train.training(jargs))
+    assert topt.step == int(jopt.step) == k + 1
+    np.testing.assert_array_equal(tp.alive.numpy(), np.asarray(jaux.alive))
+    lrs = t_train.group_learning_rates(t_train.OptimizationParams(),
+                                       k + 1, scene.cameras_extent)
+    dc = np.load(ck)["params/features_dc"].astype(np.float64)
+    for g in PARAM_GROUPS:
+        want = np.asarray(getattr(jp, g))
+        on = (np.abs(0.28209479177387814 * dc + 0.5) <= 1e-6
+              if g == "features_dc" else np.zeros(want.shape, bool))
+        steps = np.abs(getattr(tp, g).detach().numpy() - want) \
+            / float(lrs[g])
+        assert steps[~on].max(initial=0.0) <= FLAG_STEPS, (flag, k, g)
+        assert steps[on].max(initial=0.0) <= 1 + FLAG_STEPS, (flag, k, g)
+        for got, ref in ((topt.mu[g], getattr(jopt.mu, g)),
+                         (topt.nu[g], getattr(jopt.nu, g))):
+            ref = np.asarray(ref)
+            np.testing.assert_allclose(
+                got.numpy()[~on], ref[~on], rtol=0,
+                atol=MOMENT_TOL * np.abs(ref).max(initial=0.0),
+                err_msg=f"{flag} {k} {g}")
 
 
 def test_train_lm_main_adam_then_lm(scene_dir, tmp_path, monkeypatch):

@@ -28,7 +28,8 @@ from gslm_tpu_torch import train as t_train
 from gslm_tpu_torch.data.png import write_png
 from tests.test_torch_trainer import (ITERS, LINEAGE_ROWS, _argv,  # noqa: F401
                                       _assert_params, _jax_noise, _keep_stdout,
-                                      scene_dir)
+                                      _restore_stdout, scene_dir)
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 UNRELIABLE = "view_003.png"     # COLMAP image names keep the extension
 REL = 1e-5
@@ -110,7 +111,7 @@ def depth_runs(depth_scene, tmp_path_factory):
                               checkpoint_iterations=None)
                     + ["-d", "depths", "--num_images", "5"], sgd=True)
     finally:
-        sys.stdout = saved
+        _restore_stdout(saved)
         mp.undo()
     return loop, sgd
 

@@ -25,6 +25,7 @@ from gslm_tpu.viewer import ViewerServer as JViewerServer
 from gslm_tpu_torch.models.gaussians import PARAM_GROUPS, params_from_numpy
 from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig
 from gslm_tpu_torch.viewer import ViewerServer
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 H, W = 48, 64
 
