@@ -7,7 +7,7 @@ failed phase exits non-zero:
 
 1. card and build: the card's name and power limit; nvcc builds every
    kernel of ``gslm_tpu_torch/csrc`` (one process per source, in
-   parallel); kernels A's, C's, D's and E's registers, static shared
+   parallel); kernels A's, C's, D's, E's and F's registers, static shared
    memory and resident blocks per SM.
 2. each kernel against its plain PyTorch version on the card: kernel A
    (tile compositor) on one 1920x1080 view of the headline scene, kernel B
@@ -125,7 +125,19 @@ failed phase exits non-zero:
    write, load, PNG, 3-NN, ``create_from_pcd``, density-event and
    checkpoint times, the median step before and after densification and
    two profiled steps' device-busy shares. Phase 9's scene stays on disk
-   for phase 10.
+   for phase 10. Kernel F (the 3-NN grid search): the Scene load's
+   ``create_from_pcd`` launches it exactly once, and nothing else in
+   phase 9 launches it; F bit for bit (``torch.equal``) against its plain
+   version on (a) the scene's 131,072 points, (b) the million-Gaussian
+   scene's means (bench.py:338-378) on ``KNN_SAMPLE`` rows (``rows=``),
+   also within 1e-5 relative of float64 there, and (c) a seeded
+   131,072-point clustered cloud with 1 % outliers at 100x the clusters'
+   spread; its pair-counting instantiation equal to it, two runs equal.
+   Prints per cloud F's search alone and with its grid, the plain
+   version's time (not at (b)), the candidate pairs per point (mean, max)
+   and the byte bound, and the points3D.bin parse time. Over phases
+   10-14's process, kernel F's launches must equal the ``Scene`` loads
+   that make a model from a point cloud on the card.
 10. the command lines end to end (cell train-cli-131k-1080p), each
    through its ``main(argv)`` in this process, ``sys.stdout`` put back
    after each (``safe_state`` wraps it): ``train.main`` on phase 9's
@@ -256,7 +268,7 @@ failed phase exits non-zero:
    kernels A, B and C on an Adam step's inputs at seed 0's plateau and E
    on its first LM step's against their plain versions. Prints the
    plateau, gains, phase times, launches and largest tile loads.
-16. a ``{"kernels": [...]}`` line, then the last line
+16. a ``{"kernels": [...]}`` line (A-E, then F), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of gslm_tpu. It finds the package beside itself
@@ -1088,6 +1100,7 @@ def run(dev, n_gauss: int, height: int, width: int) -> None:
     import torch
 
     from gslm_tpu_torch import _build
+    from gslm_tpu_torch.ops.knn import mean_sq_dist_3nn
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}", flush=True)
@@ -1102,7 +1115,9 @@ def run(dev, n_gauss: int, height: int, width: int) -> None:
     attrs = {"A": fwd_attrs(_build.load("composite_fwd")),
              "C": bwd_attrs(_build.load("composite_bwd")),
              "D": bucket_bwd_attrs(_build.load("composite_bucket_bwd")),
-             "E": jvp_attrs(_build.load("composite_jvp"))}
+             "E": jvp_attrs(_build.load("composite_jvp")),
+             "F": kernel_attrs(_build.load("knn"), "knn_attrs",
+                               F_INSTANCES)}
     for k, v in attrs.items():
         print(f"kernel {k} registers, static shared bytes, resident "
               f"256-thread blocks per SM: {v}", flush=True)
@@ -1115,23 +1130,35 @@ def run(dev, n_gauss: int, height: int, width: int) -> None:
     kernels.insert(3, bucket_phase(dev, M1_N, height, width, tag, kernels))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_scene_") as root:
         src = scene_phase(dev, n_gauss, height, width, tag, kernels, root)
-        adam_ms = cli_phase(dev, n_gauss, height, width, tag, kernels, src,
-                            root)
-        quality = quality_start(dev, tag, root)   # phase 15, beside 11-14
-        try:
-            model = depth_phase(dev, n_gauss, height, width, tag, kernels,
-                                src, root, adam_ms)
-            lpips_parity_phase(dev, tag, kernels, model, root)
-            dp_phase(dev, n_gauss, height, width, tag, kernels, src, root,
-                     lm_ref)
-            mp_phase(dev, n_gauss, M1_N, height, width, tag, kernels, src,
-                     root, lm_ref)
-            quality_finish(quality, tag, kernels)
-        finally:
-            for p in quality[0].processes:
-                if p.is_alive():
-                    p.kill()
-                    p.join()
+        f = kernels[5]
+        with pcd_calls() as pcd:   # kernel F in phases 10-14's process
+            mean_sq_dist_3nn.launches = 0
+            adam_ms = cli_phase(dev, n_gauss, height, width, tag, kernels,
+                                src, root)
+            quality = quality_start(dev, tag, root)   # phase 15, beside 11-14
+            try:
+                model = depth_phase(dev, n_gauss, height, width, tag,
+                                    kernels, src, root, adam_ms)
+                lpips_parity_phase(dev, tag, kernels, model, root)
+                dp_phase(dev, n_gauss, height, width, tag, kernels, src,
+                         root, lm_ref)
+                mp_phase(dev, n_gauss, M1_N, height, width, tag, kernels,
+                         src, root, lm_ref)
+                n_f = mean_sq_dist_3nn.launches
+                check(n_f == len(pcd), f"kernel F launched {n_f} times in "
+                      f"phases 10-14's process, by {len(pcd)} create_from_pcd "
+                      f"calls: F runs only under create_from_pcd, once each")
+                print(f"{tag} kernel F in phases 10-14's process: {n_f} "
+                      f"launches, one per Scene load from a point cloud "
+                      f"({len(pcd)}); none elsewhere", flush=True)
+                f["launches_by_path"]["command_lines"] = n_f
+                f["launches"] += n_f
+                quality_finish(quality, tag, kernels)
+            finally:
+                for p in quality[0].processes:
+                    if p.is_alive():
+                        p.kill()
+                        p.join()
     for entry, k in zip(kernels, "ABCDE"):
         if k in attrs:
             entry["attrs"] = attrs[k]
@@ -2298,19 +2325,153 @@ PROFILED_STEPS = (20, 65)      # one before densification, one after
 CHECKED_STEPS = (21, 66)       # A, B, C held to plain on these steps' inputs
 
 
-def knn_float64(points: np.ndarray, rows: np.ndarray) -> np.ndarray:
+def knn_float64(points: np.ndarray, rows: np.ndarray, dev=None
+                ) -> np.ndarray:
     """Mean squared distance of ``points[rows]`` to their 3 nearest other
-    points, brute force in float64 numpy."""
-    p = points.astype(np.float64)
-    out = np.empty(len(rows))
+    points, brute force in float64 on ``dev`` (the card, or the CPU)."""
+    import torch
+    p = torch.tensor(points, dtype=torch.float64, device=dev)
+    r = torch.as_tensor(rows, device=dev)
+    out = torch.empty(len(rows), dtype=torch.float64, device=dev)
     for lo in range(0, len(rows), 256):
-        r = rows[lo:lo + 256]
-        d2 = np.zeros((len(r), len(p)))
+        q = p[r[lo:lo + 256]]
+        d2 = torch.zeros((len(q), len(p)), dtype=torch.float64, device=dev)
         for i in range(3):
-            d2 += (p[r, i][:, None] - p[None, :, i]) ** 2
-        out[lo:lo + 256] = np.sort(np.partition(d2, 3, axis=1)[:, :4],
-                                   axis=1)[:, 1:].mean(axis=1)
-    return out
+            d2 += (q[:, i:i + 1] - p[None, :, i]) ** 2
+        out[lo:lo + 256] = torch.topk(d2, 4, dim=1, largest=False,
+                                      sorted=True).values[:, 1:].mean(dim=1)
+    return out.cpu().numpy()
+
+
+F_REPS = 5            # kernel F's and its plain version's timed calls
+F_INSTANCES = ("pass 1", "pass 2", "pass 1 counting", "pass 2 counting")
+F_CLUSTER_SEED = 5    # cloud (c): clusters with 1 % far outliers
+F_OPS = 9             # fp32 operations per candidate pair: 3 sub, 3 mul,
+#                       2 add, the compare with the third best
+
+
+@contextlib.contextmanager
+def pcd_calls():
+    """Counts the ``create_from_pcd`` calls of ``Scene`` inside the block
+    that compute the 3-NN on the card (no ``mean_sq_dist`` given, a CUDA
+    device): a list that grows by one per call."""
+    from gslm_tpu_torch.device import resolve_device
+    from gslm_tpu_torch.models import scene as scene_mod
+    real = scene_mod.create_from_pcd
+    got = []
+
+    def counted(*a, **k):
+        if (k.get("mean_sq_dist") is None
+                and resolve_device(k.get("device")).type == "cuda"):
+            got.append(1)
+        return real(*a, **k)
+
+    scene_mod.create_from_pcd = counted
+    try:
+        yield got
+    finally:
+        scene_mod.create_from_pcd = real
+
+
+def knn_checks(dev, tag: str, scene_pts: np.ndarray, n_gauss: int) -> dict:
+    """Kernel F against its plain version on (a) phase 9's scene points,
+    (b) the million-Gaussian scene's means (bench.py:338-378) on
+    ``KNN_SAMPLE`` rows, also against float64, and (c) a seeded clustered
+    cloud of ``n_gauss`` points with 1 % outliers at 100x the clusters'
+    spread; F's times (its search alone on a built grid, and the whole
+    wrapper with the grid), the plain version's (not at (b)), candidate
+    pairs per point and the byte bound. F's launch count is left as it
+    was: these are comparisons. Returns F's kernel entry."""
+    import torch
+
+    from gslm_tpu_torch import _build
+    from gslm_tpu_torch.ops import knn
+    from gslm_tpu_torch.utils.synthetic import clustered_cloud
+
+    f = knn.mean_sq_dist_3nn
+    saved = f.launches
+    attrs = kernel_attrs(_build.load("knn"), "knn_attrs", F_INSTANCES)
+    clouds = {
+        "a: phase 9's scene points": scene_pts.astype(np.float32),
+        "b: m1 means": np.random.default_rng(2).uniform(
+            -1.5, 1.5, (M1_N, 3)).astype(np.float32),
+        "c: clustered, 1 % outliers": clustered_cloud(
+            np.random.default_rng(F_CLUSTER_SEED), n_gauss),
+    }
+    res = {}
+    for label, pts in clouds.items():
+        x = torch.tensor(pts, device=dev)
+        n = len(pts)
+        got = f(x)
+        g = knn.build_grid(x)
+        counted, pairs, handed = knn.search(g, count_pairs=True)
+        check(torch.equal(counted, got), f"kernel F ({label}): the pair-"
+              f"counting instantiation differs")
+        check(torch.equal(f(x), got), f"kernel F ({label}): two runs differ")
+        search_ms = cuda_ms(lambda: knn.search(g), F_REPS)
+        wrapper_ms = cuda_ms(lambda: f(x), F_REPS)
+        dims = g.dims
+        del g
+        r = {"n": n, "dims": dims, "search_ms": search_ms,
+             "wrapper_ms": wrapper_ms, "second_pass": int(handed),
+             "pairs_mean": float(pairs.double().mean()),
+             "pairs_max": int(pairs.max()),
+             "bound_ms": n * 16 / PEAK_BYTES * 1e3,
+             "pairs_ms": float(pairs.double().sum()) * F_OPS / FP32_RATE
+             * 1e3}
+        if label.startswith("b"):
+            rows = np.sort(np.random.default_rng(4).choice(
+                n, min(KNN_SAMPLE, n), replace=False))
+            want = knn.mean_sq_dist_3nn_plain(x, chunk=256, rows=rows)
+            sub = got[torch.as_tensor(rows, device=dev)]
+            r["equal"] = torch.equal(sub, want)
+            r["max_abs_err"] = float((sub - want).abs().max())
+            ref = knn_float64(pts, rows, dev)
+            r["rel64"] = float(np.max(np.abs(sub.cpu().numpy() - ref) / ref))
+            check(r["rel64"] <= 1e-5, f"kernel F ({label}) off float64 by "
+                  f"{r['rel64']:.3g} relative")
+            r["plain_ms"] = None
+            what = f"on {len(rows)} rows"
+        else:
+            want, first = cuda_timed(lambda: knn.mean_sq_dist_3nn_plain(x))
+            r["plain_ms"] = statistics.median(
+                [first] + cuda_times(lambda: knn.mean_sq_dist_3nn_plain(x),
+                                     F_REPS - 1, warmup=0))
+            r["equal"] = torch.equal(got, want)
+            r["max_abs_err"] = float((got - want).abs().max())
+            what = "on every row"
+        check(r["equal"], f"kernel F ({label}) differs from its plain version "
+              f"{what}: max|d| {r['max_abs_err']:.3g}")
+        plain = ("" if r["plain_ms"] is None
+                 else f", plain {r['plain_ms']:.1f} ms")
+        print(f"{tag} kernel F ({label}, {n} points, grid {dims}): "
+              f"bitwise equal to its plain version {what}, repeatable"
+              + (f", within {r['rel64']:.3g} relative of float64"
+                 if "rel64" in r else "")
+              + f"; search {search_ms:.4f} ms, with the grid "
+              f"{wrapper_ms:.4f} ms (CUDA events, median of {F_REPS})"
+              f"{plain}; candidate pairs per point mean "
+              f"{r['pairs_mean']:.1f}, max {r['pairs_max']}; "
+              f"{r['second_pass']} points to the second pass; bound "
+              f"{r['bound_ms']:.5f} ms (bytes: P x 16 B at 3.35 TB/s); "
+              f"the pairs at the fp32 rate {r['pairs_ms']:.4f} ms "
+              f"({F_OPS} operations each: F's own work, in no bound)",
+              flush=True)
+        res[label] = r
+        del x, got, want
+        torch.cuda.empty_cache()
+    f.launches = saved
+    a = res["a: phase 9's scene points"]
+    return {"name": "knn_mean_sq_dist", "route": "cuda",
+            "source": "gslm_tpu_torch/csrc/knn.cu",
+            "replaces": "native/gslm_native.cpp:30 (gslm_tpu/native.py:73; "
+                        "no Pallas kernel)",
+            "launches": 0, "launches_by_path": {},
+            "max_abs_err": max(r["max_abs_err"] for r in res.values()),
+            "ms": a["search_ms"], "plain_ms": a["plain_ms"],
+            "bound_ms": a["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "wrapper_ms": a["wrapper_ms"],
+            "attrs": attrs, "clouds": res}
 
 
 def knife_rows(params, aux, max_grad, min_opacity, extent, max_screen_size,
@@ -2534,17 +2695,23 @@ def scene_phase(dev, n_gauss: int, height: int, width: int, tag: str,
           f"{statistics.median(png_ms):.1f} ms per image (median of "
           f"{len(png_ms)}), decode {statistics.median(decode_ms):.1f} ms "
           f"(median of {len(decode_ms)}), {png_bytes} bytes per PNG; "
-          f"points3D.bin read back in {points_ms:.1f} ms; "
+          f"points3D.bin ({n_gauss} points) parsed in {points_ms:.1f} ms; "
           f"decode of a Paeth-filtered PNG (ms, one each): "
           + ", ".join(f"{k} {v:.1f}" for k, v in paeth_ms.items()),
           flush=True)
 
     # ---- 2. the scene loaded on the card ----------------------------
+    mean_sq_dist_3nn.launches = 0
     t0 = time.perf_counter()
-    scene = Scene(src, model, resolution=1, shuffle=False,
-                  capacity=2 * n_gauss, device=dev)
+    with pcd_calls() as pcd:
+        scene = Scene(src, model, resolution=1, shuffle=False,
+                      capacity=2 * n_gauss, device=dev)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
+    f_load = mean_sq_dist_3nn.launches
+    check(f_load == 1 and len(pcd) == 1, f"Scene load: kernel F launched "
+          f"{f_load} times by {len(pcd)} create_from_pcd calls, expected "
+          f"once by one")
     train_cams = scene.get_train_cameras()
     check(len(train_cams) == SCENE_VIEWS,
           f"{len(train_cams)} train cameras, expected {SCENE_VIEWS}")
@@ -2575,7 +2742,7 @@ def scene_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     del fresh
     rows = np.sort(np.random.default_rng(4).choice(
         n_gauss, min(KNN_SAMPLE, n_gauss), replace=False))
-    want = knn_float64(scene.scene_info.points.astype(np.float32), rows)
+    want = knn_float64(scene.scene_info.points.astype(np.float32), rows, dev)
     knn_rel = float(np.max(np.abs(msd.cpu().numpy()[rows] - want) / want))
     check(knn_rel <= 1e-5, f"3-NN off float64 by {knn_rel:.3g} relative")
     scale_want = torch.log(torch.sqrt(torch.clamp(msd, min=1e-7)))
@@ -2586,12 +2753,17 @@ def scene_phase(dev, n_gauss: int, height: int, width: int, tag: str,
           f"round-tripped to 1e-6, {n_alive} alive of "
           f"{params.capacity}; 3-NN {knn_ms:.3f} ms, create_from_pcd "
           f"given the 3-NN {pcd_ms:.3f} ms (its model equal to the "
-          f"Scene's); 3-NN vs float64 numpy on {len(rows)} rows: "
+          f"Scene's); 3-NN vs float64 on {len(rows)} rows: "
           f"max rel {knn_rel:.3g}; log-scales in "
           f"[{float(params.scaling.detach()[:n_gauss].min()):.3f}, "
           f"{float(params.scaling.detach()[:n_gauss].max()):.3f}]; "
           f"cameras extent "
-          f"{scene.cameras_extent:.4f}", flush=True)
+          f"{scene.cameras_extent:.4f}; kernel F launched once by "
+          f"create_from_pcd", flush=True)
+    f_entry = knn_checks(dev, tag, scene.scene_info.points, n_gauss)
+    f_entry["launches"] = f_load
+    f_entry["launches_by_path"]["scene_load"] = f_load
+    mean_sq_dist_3nn.launches = 0   # the rest of phase 9 must not launch F
 
     # ---- 3. training with density control -------------------------
     batches = [batch_from_metas([c], device=dev) for c in train_cams]
@@ -2809,6 +2981,10 @@ def scene_phase(dev, n_gauss: int, height: int, width: int, tag: str,
         entry["launches"] += counted[key]
         if key in errs[0]:
             entry["max_abs_err_scene_densify"] = max(e[key] for e in errs)
+    check(mean_sq_dist_3nn.launches == 0, f"kernel F launched "
+          f"{mean_sq_dist_3nn.launches} times by phase 9's steps, density "
+          f"events, checkpoint and Scene reload")
+    kernels.append(f_entry)
     return src
 
 

@@ -52,6 +52,11 @@ SIGNATURES = {
                                                  _I, _I, _VP, _VP, _VP],
                       "composite_jvp_attrs": [_VP]},
     "blur": {"blur_same": [_VP, _VP, _I, _I, _I, _VP, _I, _VP]},
+    "knn": {"knn_mean_sq_dist": [_VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _VP,
+                                 _VP],
+            "knn_mean_sq_dist_pairs": [_VP, _VP, _VP, _VP, _I, _VP, _VP, _VP,
+                                       _VP, _VP, _VP],
+            "knn_attrs": [_VP]},
 }
 
 

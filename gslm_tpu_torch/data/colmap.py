@@ -6,7 +6,6 @@ public COLMAP spec."""
 from __future__ import annotations
 
 import dataclasses
-import os
 import struct
 
 import numpy as np
@@ -114,20 +113,44 @@ def read_images_text(path):
     return images
 
 
+# one points3D.bin record before its track: id, xyz, rgb, error, track
+# length (43 + 8 bytes, packed)
+_POINT = np.dtype([("id", "<i8"), ("xyz", "<f8", (3,)), ("rgb", "u1", (3,)),
+                   ("error", "<f8"), ("track", "<u8")])
+
+
+def _points3d_records(path) -> np.ndarray:
+    """points3D.bin's records (``_POINT``, the tracks skipped): the file in
+    one buffer, one pass over the track lengths for the record offsets,
+    then one numpy gather of the fixed fields. The counterpart of the JAX
+    package's native parser (``native.parse_points3d_bin``). A file that
+    ends inside a record or a track raises ``ValueError``."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    if len(buf) < 8:
+        raise ValueError(f"{path}: truncated points3D.bin (no count)")
+    (n,) = struct.unpack_from("<Q", buf, 0)
+    offsets = np.empty(n, np.int64)
+    off, size = 8, _POINT.itemsize
+    unpack = struct.Struct("<Q").unpack_from
+    for i in range(n):
+        if off + size > len(buf):
+            raise ValueError(f"{path}: truncated points3D.bin (record {i} "
+                             f"of {n})")
+        offsets[i] = off
+        off += size + 8 * unpack(buf, off + size - 8)[0]
+    if off > len(buf):
+        raise ValueError(f"{path}: truncated points3D.bin (track {n - 1} "
+                         f"of {n})")
+    raw = np.frombuffer(buf, np.uint8)
+    return raw[offsets[:, None] + np.arange(size)].view(_POINT)[:, 0]
+
+
 def read_points3d_binary_with_ids(path):
     """→ (ids (N,) i64, xyz (N,3) f64), for tools that index points by
     COLMAP point id."""
-    with open(path, "rb") as f:
-        (n,) = _read(f, 8, "Q")
-        ids = np.empty(n, np.int64)
-        xyz = np.empty((n, 3))
-        for i in range(n):
-            data = _read(f, 43, "qdddBBBd")
-            ids[i] = data[0]
-            xyz[i] = data[1:4]
-            (tlen,) = _read(f, 8, "Q")
-            f.seek(8 * tlen, os.SEEK_CUR)
-    return ids, xyz
+    rec = _points3d_records(path)
+    return rec["id"].copy(), rec["xyz"].copy()
 
 
 def read_points3d_text_with_ids(path):
@@ -145,19 +168,8 @@ def read_points3d_text_with_ids(path):
 
 def read_points3d_binary(path):
     """→ (xyz (N,3) f64, rgb (N,3) u8, error (N,) f64)."""
-    with open(path, "rb") as f:
-        (n,) = _read(f, 8, "Q")
-        xyz = np.empty((n, 3))
-        rgb = np.empty((n, 3), np.uint8)
-        err = np.empty(n)
-        for i in range(n):
-            data = _read(f, 43, "qdddBBBd")
-            xyz[i] = data[1:4]
-            rgb[i] = data[4:7]
-            err[i] = data[7]
-            (tlen,) = _read(f, 8, "Q")
-            f.seek(8 * tlen, os.SEEK_CUR)
-    return xyz, rgb, err
+    rec = _points3d_records(path)
+    return rec["xyz"].copy(), rec["rgb"].copy(), rec["error"].copy()
 
 
 def read_points3d_text(path):

@@ -190,7 +190,9 @@ def create_from_pcd(points: np.ndarray, colors: np.ndarray, num_images: int,
     zero higher-order SH, log-scales from the square root of the mean
     squared 3-NN distance, identity quaternions, opacity 0.1, identity
     per-image exposure. ``mean_sq_dist`` (P,) is computed on ``device``
-    (``ops/knn.py``) when not given. Returns ``(params, aux)`` at
+    when not given (``ops/knn.mean_sq_dist_3nn``: kernel F on the card,
+    one launch; the plain version on the CPU; both equal to the JAX
+    package's native library bit for bit). Returns ``(params, aux)`` at
     ``capacity`` (default ``round_capacity(P)``), the first P slots
     alive."""
     dev = resolve_device(device)

@@ -261,6 +261,13 @@ def training(args, *, lm_phase_hook=None):
     if getattr(args, "start_checkpoint", ""):
         params, aux, opt_state, first_iter, spatial_lr_scale = \
             load_checkpoint(args.start_checkpoint, device=dev)
+        n_rows = params.exposure.shape[0]
+        n_mapped = len(scene.exposure_mapping)
+        if n_rows < n_mapped:
+            raise ValueError(
+                f"{args.start_checkpoint} holds {n_rows} exposure rows where "
+                f"the scene maps {n_mapped} images (a checkpoint written "
+                f"without --train_test_exp cannot resume with it)")
         print(f"Restored checkpoint at iteration {first_iter}")
     if mesh is not None:
         # every rank starts from rank 0's state, bit for bit (its block of

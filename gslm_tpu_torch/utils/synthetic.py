@@ -65,6 +65,23 @@ def random_gaussians(rng: np.random.Generator, n=128, capacity=None,
     return params
 
 
+def clustered_cloud(rng: np.random.Generator, n: int, clusters: int = 8,
+                    spread: float = 0.02, outliers: float = 0.01,
+                    outlier_spread: float = 100.0) -> np.ndarray:
+    """(n, 3) float32 points: ``clusters`` normal clusters of std
+    ``spread`` around centres uniform in [-1, 1]^3, and the first
+    ``outliers`` of the points normal about the origin at
+    ``outlier_spread`` times the clusters' std. A cloud whose bounding box
+    the outliers stretch far past its mass: the 3-NN's hard case. No JAX
+    counterpart."""
+    centres = rng.uniform(-1.0, 1.0, (clusters, 3))
+    pts = centres[rng.integers(0, clusters, n)] \
+        + rng.normal(0.0, spread, (n, 3))
+    m = int(n * outliers)
+    pts[:m] = rng.normal(0.0, outlier_spread * spread, (m, 3))
+    return pts.astype(np.float32)
+
+
 def ring_camera_batch(n_views: int, height: int, width: int, radius=4.0,
                       gt_seed: int | None = 0, device=None) -> CameraBatch:
     """Cameras on a ring, with random ground-truth images (uniform in [0,1)

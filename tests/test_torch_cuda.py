@@ -47,7 +47,12 @@ C at depth_grad=True on a depth L1's cotangent (invdepth row nonzero)
 against its plain version at the bound above; LPIPS on the card within
 1e-4 relative of the CPU's, TF32 on in the caller; the quick parity matrix
 (utils/paritycheck.py) all ok. A one-rank NCCL group: the data-parallel
-Adam step (parallel/steps.py) equal to ``train_step`` bit for bit."""
+Adam step (parallel/steps.py) equal to ``train_step`` bit for bit. Kernel
+F (the 3-NN grid search) equal to its plain version with ``torch.equal``
+and to itself on tests/knn_cases.py's clouds (points on cell faces,
+coplanar, collinear, identical, duplicates, P from 1 to 5, far outliers)
+and on 100,000 uniform and clustered points; ``create_from_pcd`` launches
+it once."""
 
 import numpy as np
 import pytest
@@ -73,7 +78,9 @@ from gslm_tpu_torch.optim import AdamState, init_adam
 from gslm_tpu_torch.renderer import batch_render, render
 from gslm_tpu_torch.train import loss_and_grads, train_step
 from gslm_tpu_torch.train_lm import lm_outer_step
-from gslm_tpu_torch.utils.synthetic import random_gaussians, ring_camera_batch
+from gslm_tpu_torch.utils.synthetic import (clustered_cloud, random_gaussians,
+                                            ring_camera_batch)
+from knn_cases import hard_clouds
 # pytest puts tests/ on sys.path; an installed ``tests`` package can shadow
 # the name ``tests.patch_cases``
 from patch_cases import adversarial_records
@@ -851,3 +858,57 @@ def test_dp_train_step_one_nccl_rank_equals_train_step(cuda):
         assert all(torch.equal(a, b) for a, b in zip(*runs))
     finally:
         dist.destroy_process_group()
+
+
+def _knn_equals_plain(pts: np.ndarray, cuda) -> tuple:
+    """Kernel F on ``pts`` twice against its plain version on the card:
+    (bitwise equal to plain, bitwise repeatable)."""
+    from gslm_tpu_torch.ops.knn import mean_sq_dist_3nn, mean_sq_dist_3nn_plain
+    x = torch.tensor(pts, device=cuda)
+    n0 = mean_sq_dist_3nn.launches
+    a, b = mean_sq_dist_3nn(x), mean_sq_dist_3nn(x)
+    assert mean_sq_dist_3nn.launches == n0 + 2
+    want = mean_sq_dist_3nn_plain(x, chunk=256)
+    torch.cuda.synchronize()
+    return torch.equal(a, want), torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(hard_clouds()))
+def test_knn_kernel_equals_plain(cuda, case):
+    """Kernel F bit for bit against its plain version and itself on the
+    clouds of tests/knn_cases.py: points on cell faces, coplanar,
+    collinear and identical clouds, duplicates, P from 1 to 5, clusters
+    with far outliers."""
+    assert _knn_equals_plain(hard_clouds()[case], cuda) == (True, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["uniform", "clustered"])
+def test_knn_kernel_equals_plain_at_size(cuda, case):
+    """100,000 uniform points, and 100,000 in 8 clusters with 1 % outliers
+    at 100x their spread."""
+    rng = np.random.default_rng(7)
+    pts = (rng.uniform(-1.5, 1.5, (100_000, 3)).astype(np.float32)
+           if case == "uniform" else clustered_cloud(rng, 100_000))
+    assert _knn_equals_plain(pts, cuda) == (True, True)
+
+
+@pytest.mark.cuda
+def test_knn_kernel_under_create_from_pcd(cuda):
+    """``create_from_pcd`` without a given 3-NN launches kernel F once,
+    its log-scales from F's distances; the pair-counting instantiation
+    gives the same distances and at least min(P - 1, 3) pairs a point."""
+    from gslm_tpu_torch.models.gaussians import create_from_pcd
+    from gslm_tpu_torch.ops.knn import build_grid, mean_sq_dist_3nn, search
+    rng = np.random.default_rng(8)
+    pts, colors = rng.normal(0, 1, (5000, 3)), rng.random((5000, 3))
+    n0 = mean_sq_dist_3nn.launches
+    params, _ = create_from_pcd(pts, colors, num_images=2, device=cuda)
+    assert mean_sq_dist_3nn.launches == n0 + 1
+    x = torch.tensor(pts, dtype=torch.float32, device=cuda)
+    msd = mean_sq_dist_3nn(x)
+    want = torch.log(torch.sqrt(torch.clamp(msd, min=1e-7)))
+    assert torch.equal(params.scaling[:5000, 0], want)
+    out, pairs, _ = search(build_grid(x), count_pairs=True)
+    assert torch.equal(out, msd) and int(pairs.min()) >= 3

@@ -208,6 +208,25 @@ def test_loop_flag_iterations_match_jax(scene_dir, tmp_path, flag):
                 err_msg=f"{flag} {k} {g}")
 
 
+def test_resume_with_train_test_exp_from_a_checkpoint_without_it(
+        scene_dir, tmp_path):
+    """A checkpoint written without ``--train_test_exp`` holds an exposure
+    row per train view (7 here); with the flag the scene maps every view
+    (8). The resumed run refuses before its first iteration, naming the
+    flag and both counts (JAX's loop runs on, its gathers clamped:
+    ROADMAP §3)."""
+    model = str(tmp_path / "model")
+    _capture(lambda: t_train.main(_argv(
+        scene_dir, model, "--iterations", 2, "--checkpoint_iterations", 2)))
+    ck = os.path.join(model, "chkpnt2.npz")
+    assert np.load(ck)["params/exposure"].shape[0] == 7
+    argv = _argv(scene_dir, str(tmp_path / "resumed"), "--start_checkpoint",
+                 ck, "--iterations", 4, "--train_test_exp")
+    with pytest.raises(ValueError, match=r"7 exposure rows .* maps 8 images "
+                       r".*--train_test_exp"):
+        _capture(lambda: t_train.main(argv))
+
+
 def test_train_lm_main_adam_then_lm(scene_dir, tmp_path, monkeypatch):
     """Two Adam iterations, then two LM iterations through the hook: the
     windows are JAX's draws, the best validation loss falls, xyz stays
