@@ -64,6 +64,7 @@ from gslm_tpu_torch.ops.projection import TILE, Splats2D, quad_min_rect
 from gslm_tpu_torch.ops.rasterize_tiled import (RasterConfig, _cdiv,
                                                 bucket_splats,
                                                 duplicate_sort_ranges)
+from gslm_tpu_torch.utils.profiling import span
 
 PIX = TILE * TILE   # pixels per tile
 NF = 10             # record fields: mean2d 2, conic 3, opacity, rgb 3, invdepth
@@ -126,37 +127,42 @@ def tile_records(splats: Splats2D, ntx: int, nty: int, config: RasterConfig,
     (rects coarsened by ``bucket_splats``, cull cells of bucket pixels) and
     every tile's (start, count) is its parent bucket's
     (rasterize_pallas.py:1139-1160,1255-1263)."""
-    if view_rows is None:
-        view_rows = nty
-    bk = config.bucket
-    kw = dict(cull=config.cull, live_capacity=config.live_capacity)
-    if bk == 1:
-        order, rank, starts, ends, totals = duplicate_sort_ranges(
-            splats, ntx, nty, config.dup_capacity, view_rows=view_rows, **kw)
-    else:
-        if view_rows % bk:
-            raise ValueError(f"bucket={bk} needs view_rows ({view_rows}) "
-                             f"divisible by it")
-        vrow_b = view_rows // bk
-        order, rank, starts, ends, totals = duplicate_sort_ranges(
-            bucket_splats(splats, bk), _cdiv(ntx, bk),
-            (nty // view_rows) * vrow_b, config.dup_capacity,
-            view_rows=vrow_b, tile_px=TILE * bk, **kw)
-    table = torch.cat([splats.mean2d, splats.conic, splats.opacity[:, None],
-                       splats.color, splats.invdepth[:, None]], dim=1)[order]
-    records = table[rank].contiguous()
-    starts, counts = starts.to(torch.int32), (ends - starts).to(torch.int32)
-    if bk == 1:
-        return TileRecords(records, starts, counts, totals, None)
-    # the rect gate's bounds in pixels, y view-local (:1202-1214)
-    rmin, rmax = splats.rect_min, splats.rect_max
-    y0 = torch.remainder(rmin[:, 1], view_rows)
-    rect = torch.stack([rmin[:, 0], rmax[:, 0], y0,
-                        y0 + rmax[:, 1] - rmin[:, 1]], dim=1) * TILE
-    rects = rect.to(torch.int32)[order][rank].contiguous()
-    bid = bucket_of_tile(ntx, nty, view_rows, bk, records.device)
-    return TileRecords(records, starts[bid], counts[bid], totals,
-                       BucketSegments(rects, starts, counts, bk))
+    with span("gslm.front_end"):
+        if view_rows is None:
+            view_rows = nty
+        bk = config.bucket
+        kw = dict(cull=config.cull, live_capacity=config.live_capacity)
+        if bk == 1:
+            order, rank, starts, ends, totals = duplicate_sort_ranges(
+                splats, ntx, nty, config.dup_capacity, view_rows=view_rows,
+                **kw)
+        else:
+            if view_rows % bk:
+                raise ValueError(f"bucket={bk} needs view_rows ({view_rows}) "
+                                 f"divisible by it")
+            vrow_b = view_rows // bk
+            order, rank, starts, ends, totals = duplicate_sort_ranges(
+                bucket_splats(splats, bk), _cdiv(ntx, bk),
+                (nty // view_rows) * vrow_b, config.dup_capacity,
+                view_rows=vrow_b, tile_px=TILE * bk, **kw)
+        with span("gslm.front_end.gather"):
+            table = torch.cat([splats.mean2d, splats.conic,
+                               splats.opacity[:, None], splats.color,
+                               splats.invdepth[:, None]], dim=1)[order]
+            records = table[rank].contiguous()
+            starts, counts = (starts.to(torch.int32),
+                              (ends - starts).to(torch.int32))
+            if bk == 1:
+                return TileRecords(records, starts, counts, totals, None)
+            # the rect gate's bounds in pixels, y view-local (:1202-1214)
+            rmin, rmax = splats.rect_min, splats.rect_max
+            y0 = torch.remainder(rmin[:, 1], view_rows)
+            rect = torch.stack([rmin[:, 0], rmax[:, 0], y0,
+                                y0 + rmax[:, 1] - rmin[:, 1]], dim=1) * TILE
+            rects = rect.to(torch.int32)[order][rank].contiguous()
+            bid = bucket_of_tile(ntx, nty, view_rows, bk, records.device)
+            return TileRecords(records, starts[bid], counts[bid], totals,
+                               BucketSegments(rects, starts, counts, bk))
 
 
 def _tile_pixels(tiles: torch.Tensor, ntx: int, view_rows: int):
@@ -711,9 +717,10 @@ class Composite(torch.autograd.Function):
     @staticmethod
     def forward(ctx, records, starts, counts, ntx: int, view_rows: int,
                 depth_grad: bool, buckets: BucketSegments | None):
-        tiles, walked = composite_tiles(
-            records, starts, counts, ntx, view_rows,
-            None if buckets is None else buckets.rects)
+        with span("gslm.composite_fwd"):
+            tiles, walked = composite_tiles(
+                records, starts, counts, ntx, view_rows,
+                None if buckets is None else buckets.rects)
         ctx.save_for_backward(records, starts, counts, tiles)
         ctx.geometry = (ntx, view_rows, depth_grad)
         ctx.buckets = buckets
@@ -724,14 +731,15 @@ class Composite(torch.autograd.Function):
     def backward(ctx, gtiles, _):
         records, starts, counts, tiles = ctx.saved_tensors
         ntx, view_rows, depth_grad = ctx.geometry
-        if ctx.buckets is None:
-            drec = composite_tiles_bwd(records, starts, counts, ntx,
-                                       view_rows, gtiles[:, :IMG_ROWS],
-                                       tiles[:, IMG_ROWS:], depth_grad)
-        else:
-            drec = composite_tiles_bucket_bwd(
-                records, ctx.buckets, ntx, view_rows, gtiles[:, :IMG_ROWS],
-                tiles[:, IMG_ROWS:], depth_grad)
+        with span("gslm.composite_bwd"):
+            if ctx.buckets is None:
+                drec = composite_tiles_bwd(records, starts, counts, ntx,
+                                           view_rows, gtiles[:, :IMG_ROWS],
+                                           tiles[:, IMG_ROWS:], depth_grad)
+            else:
+                drec = composite_tiles_bucket_bwd(
+                    records, ctx.buckets, ntx, view_rows,
+                    gtiles[:, :IMG_ROWS], tiles[:, IMG_ROWS:], depth_grad)
         return drec, None, None, None, None, None, None
 
 

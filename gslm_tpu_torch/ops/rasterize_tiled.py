@@ -24,6 +24,7 @@ import torch
 
 from gslm_tpu_torch.ops.projection import TILE, Splats2D, quad_min_rect
 from gslm_tpu_torch.struct import Struct
+from gslm_tpu_torch.utils.profiling import span
 
 IMPLS = ("auto", "cuda", "ref", "tiled", "pallas", "pallas_jvp")
 
@@ -195,48 +196,56 @@ def duplicate_sort_ranges(splats: Splats2D, ntx: int, nty: int, L: int, *,
         view_rows = nty
     Leff = (live_capacity or L) if cull else L
 
-    # ---- 1. depth pre-sort at P level (stable; invisible last) ----------
-    depth_key = torch.where(splats.visible, splats.depth, torch.inf)
-    order = torch.argsort(depth_key, stable=True)
-    counts = splats.tile_count[order].long()
-    x0 = splats.rect_min[order, 0].long()
-    x1 = splats.rect_max[order, 0].long()
-    y0 = splats.rect_min[order, 1].long()
-    offsets = torch.cumsum(counts, 0) - counts
-    total = counts.sum()
+    with span("gslm.front_end.duplicate"):
+        # ---- 1. depth pre-sort at P level (stable; invisible last) -------
+        depth_key = torch.where(splats.visible, splats.depth, torch.inf)
+        order = torch.argsort(depth_key, stable=True)
+        counts = splats.tile_count[order].long()
+        x0 = splats.rect_min[order, 0].long()
+        x1 = splats.rect_max[order, 0].long()
+        y0 = splats.rect_min[order, 1].long()
+        offsets = torch.cumsum(counts, 0) - counts
+        total = counts.sum()
 
-    # ---- 2. duplicate: entry e of depth rank g covers one tile of g's
-    # rect; JAX keeps only the first L entries (its static capacity)
-    rank_e = torch.repeat_interleave(
-        torch.arange(P, device=dev), counts)[:L]
-    r = torch.arange(rank_e.shape[0], device=dev) - offsets[rank_e]
-    w_e = torch.clamp(x1 - x0, min=1)[rank_e]
-    dy = torch.div(r, w_e, rounding_mode="floor")
-    dx = r - dy * w_e
-    tile = (y0 * ntx + x0)[rank_e] + dy * ntx + dx
+        # ---- 2. duplicate: entry e of depth rank g covers one tile of g's
+        # rect; JAX keeps only the first L entries (its static capacity)
+        rank_e = torch.repeat_interleave(
+            torch.arange(P, device=dev), counts)[:L]
+        r = torch.arange(rank_e.shape[0], device=dev) - offsets[rank_e]
+        w_e = torch.clamp(x1 - x0, min=1)[rank_e]
+        dy = torch.div(r, w_e, rounding_mode="floor")
+        dx = r - dy * w_e
+        tile = (y0 * ntx + x0)[rank_e] + dy * ntx + dx
 
     if cull:
         cwb = max(_cdiv(ntx, 8).bit_length(), 1)
-        m0, m1, m2, cwch, nlive = _cell_masks(splats, view_rows, cwb,
-                                              tile_px)
-        total_live = nlive.sum()
-        m0, m1, m2, cwch = (v[order].long()[rank_e] for v in (m0, m1, m2, cwch))
-        cw_e = torch.clamp(cwch & ((1 << cwb) - 1), min=1)
-        ch_e = torch.clamp(cwch >> cwb, min=1)
-        cb = (torch.clamp(torch.div(dy, ch_e, rounding_mode="floor"), 0, 7) * 8
-              + torch.clamp(torch.div(dx, cw_e, rounding_mode="floor"), 0, 7))
-        word = torch.where(cb < 22, m0, torch.where(cb < 44, m1, m2))
-        shv = torch.where(cb < 22, cb, torch.where(cb < 44, cb - 22, cb - 44))
-        live = ((word >> shv) & 1) > 0
-        tile, rank_e = tile[live], rank_e[live]
+        with span("gslm.front_end.cell_masks"):
+            m0, m1, m2, cwch, nlive = _cell_masks(splats, view_rows, cwb,
+                                                  tile_px)
+        with span("gslm.front_end.duplicate"):
+            total_live = nlive.sum()
+            m0, m1, m2, cwch = (v[order].long()[rank_e]
+                                for v in (m0, m1, m2, cwch))
+            cw_e = torch.clamp(cwch & ((1 << cwb) - 1), min=1)
+            ch_e = torch.clamp(cwch >> cwb, min=1)
+            cb = (torch.clamp(torch.div(dy, ch_e, rounding_mode="floor"),
+                              0, 7) * 8
+                  + torch.clamp(torch.div(dx, cw_e, rounding_mode="floor"),
+                                0, 7))
+            word = torch.where(cb < 22, m0, torch.where(cb < 44, m1, m2))
+            shv = torch.where(cb < 22, cb,
+                              torch.where(cb < 44, cb - 22, cb - 44))
+            live = ((word >> shv) & 1) > 0
+            tile, rank_e = tile[live], rank_e[live]
     else:
         total_live = total
 
     # ---- 3. sort on the unique (tile, rank) key; ranges by binary search
-    key, _ = torch.sort((tile << 32) | rank_e)
-    key = key[:Leff]
-    rank = key & 0xFFFFFFFF
-    bounds = (torch.arange(ntiles, device=dev) + 1) << 32
-    ends = _lower_bound(key, bounds, Leff)
-    starts = torch.cat([ends.new_zeros(1), ends[:-1]])
+    with span("gslm.front_end.sort"):
+        key, _ = torch.sort((tile << 32) | rank_e)
+        key = key[:Leff]
+        rank = key & 0xFFFFFFFF
+        bounds = (torch.arange(ntiles, device=dev) + 1) << 32
+        ends = _lower_bound(key, bounds, Leff)
+        starts = torch.cat([ends.new_zeros(1), ends[:-1]])
     return order, rank, starts, ends, (total_live, total)

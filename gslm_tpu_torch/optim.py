@@ -25,6 +25,7 @@ from gslm_tpu_torch.models.gaussians import (PARAM_GROUPS, GaussianParams,
                                              zeros_like_params)
 from gslm_tpu_torch.struct import Struct
 from gslm_tpu_torch.utils.general import expon_lr
+from gslm_tpu_torch.utils.profiling import span
 
 BETA1, BETA2 = 0.9, 0.999
 EPS = {g: 1e-15 for g in PARAM_GROUPS} | {"exposure": 1e-8}
@@ -77,22 +78,23 @@ def adam_step(params: GaussianParams, grads: dict[str, torch.Tensor],
     # scalars
     bc1 = 1.0 - torch.tensor(BETA1) ** t
     bc2 = 1.0 - torch.tensor(BETA2) ** t
-    for g in PARAM_GROUPS:
-        p = getattr(params, g)
-        gr = grads[g]
-        mu, nu = state.mu[g], state.nu[g]
-        mu_n = BETA1 * mu + (1 - BETA1) * gr
-        nu_n = BETA2 * nu + (1 - BETA2) * gr * gr
-        upd = lrs[g] * (mu_n / bc1) / (torch.sqrt(nu_n / bc2) + EPS[g])
-        p_n = p - upd
-        if visible is not None and g != "exposure":
-            m = visible.reshape((-1,) + (1,) * (p.ndim - 1))
-            p_n = torch.where(m, p_n, p)
-            mu_n = torch.where(m, mu_n, mu)
-            nu_n = torch.where(m, nu_n, nu)
-        p.copy_(p_n)
-        mu.copy_(mu_n)
-        nu.copy_(nu_n)
+    with span("gslm.adam"):
+        for g in PARAM_GROUPS:
+            p = getattr(params, g)
+            gr = grads[g]
+            mu, nu = state.mu[g], state.nu[g]
+            mu_n = BETA1 * mu + (1 - BETA1) * gr
+            nu_n = BETA2 * nu + (1 - BETA2) * gr * gr
+            upd = lrs[g] * (mu_n / bc1) / (torch.sqrt(nu_n / bc2) + EPS[g])
+            p_n = p - upd
+            if visible is not None and g != "exposure":
+                m = visible.reshape((-1,) + (1,) * (p.ndim - 1))
+                p_n = torch.where(m, p_n, p)
+                mu_n = torch.where(m, mu_n, mu)
+                nu_n = torch.where(m, nu_n, nu)
+            p.copy_(p_n)
+            mu.copy_(mu_n)
+            nu.copy_(nu_n)
     state.step = t
     return params, state
 

@@ -23,6 +23,7 @@ from gslm_tpu_torch.ops.rasterize_ref import rasterize_ref
 from gslm_tpu_torch.ops.rasterize_tiled import (RasterConfig, _cdiv,
                                                 _cell_masks, bucket_splats)
 from gslm_tpu_torch.struct import Struct
+from gslm_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -71,11 +72,12 @@ def _check_bucket(config: RasterConfig, height: int) -> int:
 
 def _pre(params, camera, config, active_sh_degree, scaling_modifier, alive,
          mean2d_offset):
-    return preprocess(params, camera, active_sh_degree=active_sh_degree,
-                      antialiasing=config.antialiasing,
-                      scaling_modifier=scaling_modifier,
-                      alive=params.alive if alive is None else alive,
-                      mean2d_offset=mean2d_offset)
+    with span("gslm.preprocess"):
+        return preprocess(params, camera, active_sh_degree=active_sh_degree,
+                          antialiasing=config.antialiasing,
+                          scaling_modifier=scaling_modifier,
+                          alive=params.alive if alive is None else alive,
+                          mean2d_offset=mean2d_offset)
 
 
 def _output(image, invdepth, radii, out) -> RenderOutput:
@@ -98,23 +100,26 @@ def render(params: GaussianParams, camera: Camera, bg: torch.Tensor, *,
     (kernels A and C on CUDA tensors, their plain versions on CPU tensors)
     or "ref". ``mean2d_offset``: (P, 2) gradient carrier of the
     densification statistics (``preprocess``)."""
-    impl = resolve_impl(config.impl if impl is None else impl)
-    if impl == "cuda":
-        _check_bucket(config, camera.height)
-    if active_sh_degree is None:
-        active_sh_degree = params.sh_degree
-    splats = _pre(params, camera, config, active_sh_degree, scaling_modifier,
-                  alive, mean2d_offset)
-    if impl == "ref":
-        out = rasterize_ref(splats, camera.height, camera.width, bg)
-        zero = torch.zeros((), dtype=torch.int64, device=bg.device)
-        out.update(n_duplicates=zero, overflow=zero, max_tile_load=zero)
-    else:
-        out = rasterize_cuda(splats, camera.height, camera.width, bg, config)
-    image = out["render"]
-    if use_trained_exp:
-        image = apply_exposure(image, params.exposure[camera.exposure_idx])
-    return _output(image, out["invdepth"], splats.radius, out)
+    with span("gslm.render"):
+        impl = resolve_impl(config.impl if impl is None else impl)
+        if impl == "cuda":
+            _check_bucket(config, camera.height)
+        if active_sh_degree is None:
+            active_sh_degree = params.sh_degree
+        splats = _pre(params, camera, config, active_sh_degree,
+                      scaling_modifier, alive, mean2d_offset)
+        if impl == "ref":
+            out = rasterize_ref(splats, camera.height, camera.width, bg)
+            zero = torch.zeros((), dtype=torch.int64, device=bg.device)
+            out.update(n_duplicates=zero, overflow=zero, max_tile_load=zero)
+        else:
+            out = rasterize_cuda(splats, camera.height, camera.width, bg,
+                                 config)
+        image = out["render"]
+        if use_trained_exp:
+            image = apply_exposure(image,
+                                   params.exposure[camera.exposure_idx])
+        return _output(image, out["invdepth"], splats.radius, out)
 
 
 def stack_views(params: GaussianParams, cameras: CameraBatch, *,
@@ -167,31 +172,36 @@ def batch_render(params: GaussianParams, cameras: CameraBatch,
     ``mean2d_offset`` is unbatched ((P, 2)): it broadcasts over views, so
     its cotangent sums over them, the accumulated screen-space gradient
     that densification reads."""
-    impl = resolve_impl(config.impl if impl is None else impl)
-    if impl == "ref":
-        outs = [render(params, cameras.view(i), bg, config=config,
-                       active_sh_degree=active_sh_degree,
-                       scaling_modifier=scaling_modifier,
-                       use_trained_exp=use_trained_exp, alive=alive,
-                       mean2d_offset=mean2d_offset, impl=impl)
-                for i in range(cameras.batch_size)]
-        return RenderOutput(**{f.name: torch.stack([getattr(o, f.name)
-                                                    for o in outs])
-                               for f in dataclasses.fields(RenderOutput)})
+    with span("gslm.render"):
+        impl = resolve_impl(config.impl if impl is None else impl)
+        if impl == "ref":
+            outs = [render(params, cameras.view(i), bg, config=config,
+                           active_sh_degree=active_sh_degree,
+                           scaling_modifier=scaling_modifier,
+                           use_trained_exp=use_trained_exp, alive=alive,
+                           mean2d_offset=mean2d_offset, impl=impl)
+                    for i in range(cameras.batch_size)]
+            return RenderOutput(**{f.name: torch.stack([getattr(o, f.name)
+                                                        for o in outs])
+                                   for f in dataclasses.fields(RenderOutput)})
 
-    H, W = cameras.height, cameras.width
-    B = cameras.batch_size
-    _check_bucket(config, H)
-    splats, radii, nty = stack_views(
-        params, cameras, config=config, active_sh_degree=active_sh_degree,
-        scaling_modifier=scaling_modifier, alive=alive,
-        mean2d_offset=mean2d_offset)
-    out = rasterize_cuda(splats, B * nty * TILE, W, bg, config, view_rows=nty)
-    image = out["render"].reshape(3, B, nty * TILE, W)[:, :, :H].transpose(0, 1)
-    invd = out["invdepth"].reshape(1, B, nty * TILE, W)[:, :, :H].transpose(0, 1)
-    if use_trained_exp:
-        image = apply_exposure(image, params.exposure[cameras.exposure_idx])
-    return _output(image, invd, radii, out)
+        H, W = cameras.height, cameras.width
+        B = cameras.batch_size
+        _check_bucket(config, H)
+        splats, radii, nty = stack_views(
+            params, cameras, config=config,
+            active_sh_degree=active_sh_degree,
+            scaling_modifier=scaling_modifier, alive=alive,
+            mean2d_offset=mean2d_offset)
+        out = rasterize_cuda(splats, B * nty * TILE, W, bg, config,
+                             view_rows=nty)
+        rows = nty * TILE
+        image = out["render"].reshape(3, B, rows, W)[:, :, :H].transpose(0, 1)
+        invd = out["invdepth"].reshape(1, B, rows, W)[:, :, :H].transpose(0, 1)
+        if use_trained_exp:
+            image = apply_exposure(image,
+                                   params.exposure[cameras.exposure_idx])
+        return _output(image, invd, radii, out)
 
 
 def band_counts(splats: Splats2D, n_views: int, height: int, n_model: int,

@@ -22,6 +22,7 @@ from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig
 from gslm_tpu_torch.ops.ssim import ssim_map
 from gslm_tpu_torch.renderer import batch_render
 from gslm_tpu_torch.struct import Struct
+from gslm_tpu_torch.utils.profiling import span
 
 
 def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -112,15 +113,16 @@ def scalar_training_loss(params: GaussianParams, cameras: CameraBatch,
                        active_sh_degree=active_sh_degree,
                        use_trained_exp=use_trained_exp, alive=alive,
                        mean2d_offset=mean2d_offset)
-    images = out.render * cameras.alpha_mask
-    valid = cameras.pixel_valid()
-    gt = cameras.gt_image
-    npix = 3.0 * torch.sum(valid, dim=(1, 2, 3))       # (B,)
+    with span("gslm.loss"):
+        images = out.render * cameras.alpha_mask
+        valid = cameras.pixel_valid()
+        gt = cameras.gt_image
+        npix = 3.0 * torch.sum(valid, dim=(1, 2, 3))       # (B,)
 
-    l1 = torch.sum(torch.abs(images - gt) * valid, dim=(1, 2, 3)) / npix
-    smap = ssim_map(images, gt) * valid
-    ssim_mean = torch.sum(smap, dim=(1, 2, 3)) / npix
-    loss_per_view = ((1.0 - lambda_dssim) * l1
-                     + lambda_dssim * (1.0 - ssim_mean))
-    loss = torch.mean(loss_per_view)
+        l1 = torch.sum(torch.abs(images - gt) * valid, dim=(1, 2, 3)) / npix
+        smap = ssim_map(images, gt) * valid
+        ssim_mean = torch.sum(smap, dim=(1, 2, 3)) / npix
+        loss_per_view = ((1.0 - lambda_dssim) * l1
+                         + lambda_dssim * (1.0 - ssim_mean))
+        loss = torch.mean(loss_per_view)
     return loss, {"l1": l1, "ssim": ssim_mean, "render": out}

@@ -70,7 +70,7 @@ from gslm_tpu_torch.renderer import batch_render
 from gslm_tpu_torch.solver.residuals import scalar_training_loss
 from gslm_tpu_torch.utils.general import get_expon_lr_func, safe_state
 from gslm_tpu_torch.utils.image import psnr
-from gslm_tpu_torch.utils.profiling import IterTimer, trace
+from gslm_tpu_torch.utils.profiling import IterTimer, span, trace
 
 
 def make_raster_config(tpu: cfg_mod.TpuParams, pipe: cfg_mod.PipelineParams,
@@ -113,7 +113,8 @@ def loss_and_grads(params: GaussianParams, cam: CameraBatch,
                          * cam.depth_mask) / npix
     loss = loss + depth_weight * depth_l1
     leaves = [getattr(params, g) for g in PARAM_GROUPS] + [m2d]
-    found = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with span("gslm.backward"):
+        found = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(x) if d is None else d
              for x, d in zip(leaves, found)]
     return (loss.detach(), info, depth_l1.detach(),
@@ -181,11 +182,14 @@ def train_step(params: GaussianParams, aux: GaussianAux,
     """One Adam iteration over a (usually B=1) camera batch:
     ``loss_and_grads`` then ``apply_update``. Updates ``params`` and
     ``opt_state`` in place."""
-    found = loss_and_grads(params, cam, bg, depth_weight, rcfg=rcfg, opt=opt,
-                           active_sh_degree=active_sh_degree, use_exp=use_exp)
-    return apply_update(params, aux, opt_state, cam, step, spatial_lr_scale,
-                        found, opt=opt, sparse_adam=sparse_adam,
-                        update_stats=update_stats)
+    with span("gslm.train_step"):
+        found = loss_and_grads(params, cam, bg, depth_weight, rcfg=rcfg,
+                               opt=opt, active_sh_degree=active_sh_degree,
+                               use_exp=use_exp)
+        return apply_update(params, aux, opt_state, cam, step,
+                            spatial_lr_scale, found, opt=opt,
+                            sparse_adam=sparse_adam,
+                            update_stats=update_stats)
 
 
 @torch.no_grad()

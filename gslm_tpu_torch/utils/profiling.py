@@ -1,12 +1,18 @@
 """Tracing and timing hooks (gslm_tpu/utils/profiling.py).
 
+- ``span(name)``: the program's spans at its layer boundaries
+  (``gslm.train_step``, ``gslm.render``, ``gslm.preprocess``,
+  ``gslm.front_end`` and its ``.cell_masks``, ``.duplicate``, ``.sort``,
+  ``.gather``, ``gslm.composite_fwd``, ``gslm.loss``, ``gslm.backward``,
+  ``gslm.composite_bwd``, ``gslm.adam``): recorded functions while a
+  ``torch.profiler`` records, so they share its timeline with the CUDA
+  runtime calls and the kernels; otherwise a shared no-op.
 - ``trace(dir)``: a ``torch.profiler`` trace of the block (host and CUDA
-  activity), written to ``dir`` as a Chrome trace (Perfetto opens it).
+  activity), written to ``dir`` as a Chrome trace (Perfetto opens it); the
+  trainer's ``--profile_dir``. It holds the program's spans.
 - ``IterTimer``: wall-clock per-iteration timer with an EMA, on the host
   clock as the JAX package's is (no device sync of its own).
-- ``device_memory_stats()``: bytes in use and peak bytes per CUDA device.
 - ``enable_nan_debugging()``: autograd anomaly mode.
-- ``timeit_ms``: median-of-3 wall-clock time per call.
 """
 
 from __future__ import annotations
@@ -15,12 +21,32 @@ import contextlib
 import os
 import time
 
+import torch
+from torch.autograd import profiler as _profiler
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The span ``name`` around a block while a ``torch.profiler`` records
+    (autograd's worker threads included), else a shared no-op context, at
+    the cost of one read of the profiler's state.
+
+    The span is a recorded function (``_RecordFunctionFast``), not a
+    ``record_function`` user annotation: the profiler copies each user
+    annotation onto the device's rows of its trace, where a PyTorch whose
+    events do not say their kind (2.11) shows the copy as one more kernel.
+    A recorded function stays on the host's rows, so the device's rows hold
+    the device's own work alone."""
+    if _profiler._is_profiler_enabled:
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _NO_SPAN
+
 
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Profile the block with ``torch.profiler`` (CPU, and CUDA where
     available) and write ``<log_dir>/trace_<pid>_<n>.json``."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -49,47 +75,8 @@ class IterTimer:
         return dt
 
 
-def device_memory_stats() -> dict:
-    """{"cuda:<i>": {"bytes_in_use", "peak_bytes_in_use"}} per CUDA device;
-    ``{}`` without CUDA."""
-    import torch
-    out = {}
-    if not torch.cuda.is_available():
-        return out
-    for i in range(torch.cuda.device_count()):
-        s = torch.cuda.memory_stats(i)
-        out[f"cuda:{i}"] = {
-            "bytes_in_use": s.get("allocated_bytes.all.current"),
-            "peak_bytes_in_use": s.get("allocated_bytes.all.peak")}
-    return out
-
-
 def enable_nan_debugging():
     """``--detect_anomaly``: autograd anomaly mode (the reference's own,
     train.py:267,285), which raises at the first backward op that
     produces a NaN."""
-    import torch
     torch.autograd.set_detect_anomaly(True)
-
-
-def timeit_ms(fn, args, iters: int = 8, warmup: int = 1) -> float:
-    """Median of 3 blocks of ``iters`` calls, wall clock per call in ms,
-    with one ``torch.cuda.synchronize`` per block (none on the CPU)."""
-    import numpy as np
-    import torch
-
-    def sync():
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-
-    for _ in range(warmup):
-        fn(*args)
-    sync()
-    ts = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn(*args)
-        sync()
-        ts.append((time.perf_counter() - t0) / iters)
-    return float(np.median(ts)) * 1e3

@@ -330,22 +330,21 @@ def test_entry_points_raise_naming_cuda_without_it(scene_dir, tmp_path,
         _capture(lambda: t_train.main(argv + ["--platform", "tpu"]))
 
 
-def test_profiling_helpers(tmp_path, monkeypatch):
-    """``--profile_dir``'s Chrome trace, the loop's timer, the memory
-    stats (empty without CUDA), ``timeit_ms`` and ``--detect_anomaly``."""
+def test_profiling_helpers(tmp_path):
+    """``--profile_dir``'s Chrome trace, which holds the program's spans,
+    the loop's timer and ``--detect_anomaly``."""
     import json
 
     from gslm_tpu_torch.utils import profiling
     with profiling.trace(str(tmp_path / "trace")):
-        torch.ones(64).cumsum(0)
+        with profiling.span("gslm.test"):
+            torch.ones(64).cumsum(0)
     (name,) = os.listdir(tmp_path / "trace")
     with open(tmp_path / "trace" / name) as f:
-        assert json.load(f)["traceEvents"]
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("name") == "gslm.test" for e in events)
     timer = profiling.IterTimer()
     assert timer.tick() >= 0.0 and timer.value_ms >= 0.0
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert profiling.device_memory_stats() == {}
-    assert profiling.timeit_ms(torch.add, (torch.ones(4), 1), iters=2) > 0.0
     was = torch.is_anomaly_enabled()
     try:
         profiling.enable_nan_debugging()
