@@ -7,8 +7,8 @@ failed phase exits non-zero:
 
 1. card and build: the card's name and power limit; nvcc builds every
    kernel of ``gslm_tpu_torch/csrc`` (one process per source, in
-   parallel); kernels A's, C's, D's, E's and F's registers, static shared
-   memory and resident blocks per SM.
+   parallel); kernels A's, C's, D's, E's, F's and G's registers, static
+   shared memory and resident blocks per SM.
 2. each kernel against its plain PyTorch version on the card: kernel A
    (tile compositor) on one 1920x1080 view of the headline scene, kernel B
    (SSIM blur) on (15, 1080, 1920) planes, bit for bit. TF32 is off for
@@ -268,8 +268,19 @@ failed phase exits non-zero:
    kernels A, B and C on an Adam step's inputs at seed 0's plateau and E
    on its first LM step's against their plain versions. Prints the
    plateau, gains, phase times, launches and largest tile loads.
-16. a ``{"kernels": [...]}`` line (A-E, then F), then the last line
+16. a ``{"kernels": [...]}`` line (A-E, then F and G), then the last line
    ``{"ok": true, "device": {...}}``.
+
+Kernel G (the front end's cull masks) runs once per front end: once per
+render (kernel A) and per J·v (kernel E), and once per ``overflow_probe``
+with culling on. Every phase's launch checks count it: 1 per
+``batch_render``, ``train_step`` and Adam or SGD attempt, 77 per
+``lm_outer_step`` (71 renders, 6 J·v), 14 per model-axis LM step, one
+per chunk of ``render_sets``, none in ``metrics``, and per command-line
+LM iteration 77 and one per probe of its window and validation views.
+Phase 4 holds it bit for bit (``torch.equal``, all five outputs) to
+``_cell_masks_plain`` on the 4-view stack and times both against its byte
+bound; its entry in the kernels line gives its launches by path.
 
 Imports nothing of JAX or of gslm_tpu. It finds the package beside itself
 however it is started; without the package beside it, or without CUDA, it
@@ -303,12 +314,15 @@ CAPS = dict(dup_capacity=VIEWS * 1_638_400, live_capacity=VIEWS * 1_280_000,
 LM_CAPS = dict(dup_capacity=6_654_208, live_capacity=5_469_696, cull=True)
 # per lm_outer_step: A = 1 linearization + 7 alphas x 10 val chunks; C = 2
 # restarts + 2 iterations (Jᵀ·u); E = 2 restarts + 2 iterations + 2
-# divergence checks (J·v)
-LM_LAUNCHES = {"A": 71, "B": 0, "C": 4, "E": 6}
+# divergence checks (J·v); G = one per front end, A + E
+LM_LAUNCHES = {"A": 71, "B": 0, "C": 4, "E": 6, "G": 77}
 EXPOSURES = 50         # bench.py's exposure images
 TRAIN_STEPS = 10       # steps over which the loss must fall
 PEAK_FP32 = 67e12      # H100 SXM fp32 outside the tensor cores, FLOP/s
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s
+G_BYTES = 64           # kernel G's bytes per Gaussian: 44 read, 20 written
+# kernel G's launches by path, filled as each phase checks them
+G_LAUNCHES: dict[str, int] = {}
 # Issue rates behind PEAK_FP32 (an FMA counts two FLOPs): 128 fp32 lanes
 # per SM per clock, each taking one FFMA, FADD or FMUL; the SFU (MUFU) has
 # 16 lanes per SM per clock.
@@ -518,9 +532,10 @@ def blur_inputs():
 def _counted_wrappers() -> dict:
     from gslm_tpu_torch.ops import rasterize_cuda as rc
     from gslm_tpu_torch.ops.blur_cuda import blur_same
+    from gslm_tpu_torch.ops.rasterize_tiled import _cell_masks
     return {"A": rc.composite_tiles, "B": blur_same,
             "C": rc.composite_tiles_bwd, "D": rc.composite_tiles_bucket_bwd,
-            "E": rc.composite_tiles_jvp}
+            "E": rc.composite_tiles_jvp, "G": _cell_masks}
 
 
 def launches() -> dict:
@@ -1117,13 +1132,15 @@ def run(dev, n_gauss: int, height: int, width: int) -> None:
              "D": bucket_bwd_attrs(_build.load("composite_bucket_bwd")),
              "E": jvp_attrs(_build.load("composite_jvp")),
              "F": kernel_attrs(_build.load("knn"), "knn_attrs",
-                               F_INSTANCES)}
+                               F_INSTANCES),
+             "G": kernel_attrs(_build.load("cell_masks"), "cell_masks_attrs",
+                               ("thread per Gaussian",))}
     for k, v in attrs.items():
         print(f"kernel {k} registers, static shared bytes, resident "
               f"256-thread blocks per SM: {v}", flush=True)
 
     tag = f"[{card}]"
-    kernels = serve_phase(dev, n_gauss, height, width, tag)
+    kernels, g_entry = serve_phase(dev, n_gauss, height, width, tag)
     kernels.append(train_phase(dev, n_gauss, height, width, tag, kernels))
     e_entry, lm_ref = lm_phase(dev, n_gauss, height, width, tag, kernels)
     kernels.append(e_entry)
@@ -1162,6 +1179,9 @@ def run(dev, n_gauss: int, height: int, width: int) -> None:
     for entry, k in zip(kernels, "ABCDE"):
         if k in attrs:
             entry["attrs"] = attrs[k]
+    g_entry.update(attrs=attrs["G"], launches=sum(G_LAUNCHES.values()),
+                   launches_by_path=dict(G_LAUNCHES))
+    kernels.append(g_entry)
     sass_totals()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1169,8 +1189,9 @@ def run(dev, n_gauss: int, height: int, width: int) -> None:
 
 
 def serve_phase(dev, n_gauss: int, height: int, width: int,
-                tag: str) -> list[dict]:
-    """Phases 2-4. Returns the kernel entries of A and B."""
+                tag: str) -> tuple[list[dict], dict]:
+    """Phases 2-4. Returns the kernel entries of A and B, and kernel G's
+    (its launches by path filled in at the end of the run)."""
     import torch
 
     from gslm_tpu_torch.eval.metrics import pair_metrics
@@ -1183,6 +1204,7 @@ def serve_phase(dev, n_gauss: int, height: int, width: int,
                                                    tile_records)
     from gslm_tpu_torch.ops.rasterize_tiled import (RasterConfig, _cdiv,
                                                     _cell_masks,
+                                                    _cell_masks_plain,
                                                     duplicate_sort_ranges)
     from gslm_tpu_torch.ops.ssim import gaussian_taps
     from gslm_tpu_torch.renderer import batch_render, render, stack_views
@@ -1231,16 +1253,19 @@ def serve_phase(dev, n_gauss: int, height: int, width: int,
         composite_tiles.launches = 0
         blur_same.launches = 0
         composite_tiles_bwd.launches = 0
+        _cell_masks.launches = 0
         out = batch_render(params, cams, bg, config=cfg)
         metrics = [pair_metrics(out.render[v], cams.gt_image[v])
                    for v in range(VIEWS)]
         torch.cuda.synchronize()
         launches = {"A": composite_tiles.launches, "B": blur_same.launches,
-                    "C": composite_tiles_bwd.launches}
+                    "C": composite_tiles_bwd.launches,
+                    "G": _cell_masks.launches}
         print(f"serving path launches: {launches}", flush=True)
-        check(launches == {"A": 1, "B": VIEWS, "C": 0},
-              f"serving path launches {launches}: expected A once per "
+        check(launches == {"A": 1, "B": VIEWS, "C": 0, "G": 1},
+              f"serving path launches {launches}: expected A and G once per "
               f"batch_render, B once per pair, C never")
+        G_LAUNCHES["serve"] = launches["G"]
         check(int(out.overflow) == 0, f"overflow (n_duplicates "
               f"{int(out.n_duplicates)})")
         check(out.render.shape == (VIEWS, 3, height, width), "render shape")
@@ -1277,6 +1302,20 @@ def serve_phase(dev, n_gauss: int, height: int, width: int,
         check(ok, "kernel A disagrees with composite_tiles_plain on the stack")
         check(bool((walked <= cn).all()), "kernel A walked past a segment")
 
+        # kernel G against its plain version on the same stack
+        cwb = max(_cdiv(ntx, 8).bit_length(), 1)
+        g_got = _cell_masks(splats, nty, cwb)
+        g_want = _cell_masks_plain(splats, nty, cwb)
+        torch.cuda.synchronize()
+        g_equal = [torch.equal(a, b) for a, b in zip(g_got, g_want)]
+        print(f"kernel G vs plain ({VIEWS}-view stack, "
+              f"{splats.mean2d.shape[0]} rows): outputs bitwise equal "
+              f"{g_equal} (3 words, cell size, nlive); nlive sum "
+              f"{int(g_got[4].sum())}", flush=True)
+        check(all(g_equal), "kernel G differs from _cell_masks_plain on the "
+              "stack")
+        del g_got, g_want
+
         small = random_gaussians(np.random.default_rng(1), n=2048,
                                  spread=1.5, device=dev)
         scams = ring_camera_batch(1, 72, 96, device=dev)
@@ -1295,7 +1334,6 @@ def serve_phase(dev, n_gauss: int, height: int, width: int,
             lambda: batch_render(params, cams, bg, config=cfg))
         pm_ms = cuda_ms(lambda: pair_metrics(out.render[0], cams.gt_image[0]),
                         10)
-        cwb = max(_cdiv(ntx, 8).bit_length(), 1)
         stage = {
             "preprocess+stack": cuda_ms(
                 lambda: stack_views(params, cams, config=cfg), 3),
@@ -1312,6 +1350,8 @@ def serve_phase(dev, n_gauss: int, height: int, width: int,
         }
         a_plain_ms = cuda_ms(
             lambda: composite_tiles_plain(rec, st, cn, ntx, nty), 2)
+        g_plain_ms = cuda_ms(lambda: _cell_masks_plain(splats, nty, cwb), 2)
+        g_bound = G_BYTES * splats.mean2d.shape[0] / PEAK_BYTES * 1e3
         n_walked = int(walked.long().sum())
         ra = a_report(tag, f"({VIEWS}-view stack)", rec, st, cn, ntx, nty,
                       walked, stage["kernel A"])
@@ -1330,6 +1370,10 @@ def serve_phase(dev, n_gauss: int, height: int, width: int,
               f"{n_walked * 256} (record, pixel) pairs; {stage['kernel A']:.3f}"
               f" ms vs bound {ra['bound']:.4f} ms; plain {a_plain_ms:.3f} ms",
               flush=True)
+        print(f"{tag} kernel G ({VIEWS}-view stack, {splats.mean2d.shape[0]} "
+              f"rows): {stage['cell masks']:.4f} ms vs bound {g_bound:.5f} ms"
+              f" (bytes: P x {G_BYTES} B at 3.35 TB/s); plain "
+              f"{g_plain_ms:.3f} ms", flush=True)
 
         b_ms = cuda_ms(lambda: blur_same(planes, taps), 20)
         b_plain_ms = cuda_ms(lambda: blur_plain(planes, taps), 5)
@@ -1375,7 +1419,13 @@ def serve_phase(dev, n_gauss: int, height: int, width: int,
          "ms": b_ms, "plain_ms": b_plain_ms, "bound_ms": b_bound,
          "bound_by": "bytes" if b_bytes / PEAK_BYTES >= b_ops / FP32_RATE
          else "operations", "library_ms": b_lib_ms},
-    ]
+    ], {"name": "cell_masks", "route": "cuda",
+        "source": "gslm_tpu_torch/csrc/cell_masks.cu",
+        "replaces": "gslm_tpu/ops/rasterize_tiled.py:203 (array code XLA "
+                    "fuses; no Pallas kernel)",
+        "launches": 0, "launches_by_path": {}, "max_abs_err": 0.0,
+        "ms": stage["cell masks"], "plain_ms": g_plain_ms,
+        "bound_ms": g_bound, "bound_by": "bytes", "library_ms": None}
 
 
 def train_phase(dev, n_gauss: int, height: int, width: int, tag: str,
@@ -1388,7 +1438,7 @@ def train_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     from gslm_tpu_torch.models.gaussians import PARAM_GROUPS, GaussianAux
     from gslm_tpu_torch.ops import rasterize_cuda as rc
     from gslm_tpu_torch.ops.blur_cuda import blur, blur_plain, blur_same
-    from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig
+    from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig, _cell_masks
     from gslm_tpu_torch.ops.ssim import gaussian_taps
     from gslm_tpu_torch.optim import (adam_step, group_learning_rates,
                                       init_adam)
@@ -1432,16 +1482,18 @@ def train_phase(dev, n_gauss: int, height: int, width: int, tag: str,
         blur_same.launches = 0
         blur_same.vjp_launches = 0
         real_bwd.launches = 0
+        _cell_masks.launches = 0
         params, aux, state, m = train_step(params, aux, state, cam, bg, 100,
                                            1.0, 0.0, **ts_kw)
         torch.cuda.synchronize()
         launches = {"A": rc.composite_tiles.launches, "B": blur_same.launches,
-                    "C": real_bwd.launches}
+                    "C": real_bwd.launches, "G": _cell_masks.launches}
         b_vjp = blur_same.vjp_launches
     print(f"train_step launches: {launches} (B's VJP {b_vjp})", flush=True)
-    check(launches == {"A": 1, "B": 2, "C": 1} and b_vjp == 1,
+    check(launches == {"A": 1, "B": 2, "C": 1, "G": 1} and b_vjp == 1,
           f"train_step launches {launches}, B's VJP {b_vjp}: expected A "
-          f"once, B twice (one VJP), C once")
+          f"once, B twice (one VJP), C once, G once")
+    G_LAUNCHES["train_step"] = launches["G"]
     check(len(captured) == 1, "kernel C's inputs not captured once")
     losses = [float(m["loss"])]
     check(int(m["overflow"]) == 0, "train_step overflows")
@@ -1641,7 +1693,8 @@ def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     from gslm_tpu_torch.models.gaussians import PARAM_GROUPS
     from gslm_tpu_torch.ops import rasterize_cuda as rc
     from gslm_tpu_torch.ops.blur_cuda import blur_same
-    from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig, _cdiv
+    from gslm_tpu_torch.ops.rasterize_tiled import (RasterConfig, _cdiv,
+                                                    _cell_masks)
     from gslm_tpu_torch.renderer import stack_views
     from gslm_tpu_torch.solver.cg import cgls_damped_unrolled
     from gslm_tpu_torch.solver.operators import LMOperators
@@ -1679,6 +1732,7 @@ def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     blur_same.launches = 0
     rc.composite_tiles_bwd.launches = 0
     rc.composite_tiles_jvp.launches = 0
+    _cell_masks.launches = 0
     guards = (rc.composite_tiles_bwd_unmasked, rc.composite_tiles_jvp_unmasked)
     for f in guards:
         f.launches = 0
@@ -1688,10 +1742,12 @@ def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     first_s = time.perf_counter() - t0
     launches = {"A": rc.composite_tiles.launches, "B": blur_same.launches,
                 "C": rc.composite_tiles_bwd.launches,
-                "E": rc.composite_tiles_jvp.launches}
+                "E": rc.composite_tiles_jvp.launches,
+                "G": _cell_masks.launches}
     print(f"lm_outer_step launches: {launches}", flush=True)
     check(launches == LM_LAUNCHES,
           f"lm_outer_step launches {launches}: expected {LM_LAUNCHES}")
+    G_LAUNCHES["lm_outer_step"] = launches["G"]
     check(all(f.launches == 0 for f in guards),
           "lm_outer_step launched a guard kernel")
     norms = {g: float(v) for g, v in info["step_norms"].items()}
@@ -1998,8 +2054,9 @@ def bucket_phase(dev, n_gauss: int, height: int, width: int, tag: str,
         torch.cuda.synchronize()
         render_launches = got = launches()
         print(f"m1 render launches: {got}", flush=True)
-        check(got == {"A": 1, "B": 0, "C": 0, "D": 0, "E": 0},
-              f"m1 render launches {got}: expected A once")
+        check(got == {"A": 1, "B": 0, "C": 0, "D": 0, "E": 0, "G": 1},
+              f"m1 render launches {got}: expected A and G once")
+        G_LAUNCHES["render_m1_bucket4"] = got["G"]
         sp = stack_views(params, cams, config=cfg4)[0]
         tr = rc.tile_records(sp, ntx, nty, cfg4)
         check(tuple(int(t) for t in reversed(tr.totals)) == counts4
@@ -2071,8 +2128,10 @@ def bucket_phase(dev, n_gauss: int, height: int, width: int, tag: str,
         torch.cuda.synchronize()
         got = launches()
     print(f"m1 train_step launches: {got}", flush=True)
-    check(got == {"A": 1, "B": 2, "C": 0, "D": 1, "E": 0},
-          f"m1 train_step launches {got}: expected A once, B twice, D once")
+    check(got == {"A": 1, "B": 2, "C": 0, "D": 1, "E": 0, "G": 1},
+          f"m1 train_step launches {got}: expected A once, B twice, D once, "
+          f"G once")
+    G_LAUNCHES["train_m1_bucket4"] = got["G"]
     step_launches = got
     check(len(captured) == 1, "kernel D's inputs not captured once")
     losses = [float(m["loss"])]
@@ -2371,6 +2430,27 @@ def pcd_calls():
         yield got
     finally:
         scene_mod.create_from_pcd = real
+
+
+@contextlib.contextmanager
+def probe_calls():
+    """Counts ``train_lm``'s ``overflow_probe`` calls inside the block
+    that cull on the card, each one kernel G launch: a list that grows by
+    one per call."""
+    from gslm_tpu_torch import train_lm as TL
+    real = TL.overflow_probe
+    got = []
+
+    def counted(params, cameras, *, config, **k):
+        if config.cull and params.xyz.device.type == "cuda":
+            got.append(1)
+        return real(params, cameras, config=config, **k)
+
+    TL.overflow_probe = counted
+    try:
+        yield got
+    finally:
+        TL.overflow_probe = real
 
 
 def knn_checks(dev, tag: str, scene_pts: np.ndarray, n_gauss: int) -> dict:
@@ -2882,12 +2962,13 @@ def scene_phase(dev, n_gauss: int, height: int, width: int, tag: str,
             densify(it)
     torch.cuda.synchronize()
     got = launches()
-    want = {"A": SCENE_STEPS, "B": 2 * SCENE_STEPS, "C": SCENE_STEPS,
-            "D": 0, "E": 0}
+    per_step = {"A": 1, "B": 2, "C": 1, "D": 0, "E": 0, "G": 1}
+    want = {k: SCENE_STEPS * v for k, v in per_step.items()}
+    want["G"] += len(DENSIFY_AT)     # each event's overflow_probe
     print(f"scene train_step launches over {SCENE_STEPS} steps: {got}",
           flush=True)
     check(got == want, f"scene train_step launches {got}, expected "
-          f"{want} (per step A 1, B 2, C 1)")
+          f"{want} (per step A 1, B 2, C 1, G 1; G once per event's probe)")
     counted = dict(got)
     # the launches that hold the kernels to plain come after the count
     errs = [step_vs_plain(f"scene step {CHECKED_STEPS[0]}",
@@ -2900,8 +2981,7 @@ def scene_phase(dev, n_gauss: int, height: int, width: int, tag: str,
         step(it)
     torch.cuda.synchronize()
     got = launches()
-    want = {k: v * SCENE_AFTER_RESET // SCENE_STEPS
-            for k, v in want.items()}
+    want = {k: SCENE_AFTER_RESET * v for k, v in per_step.items()}
     check(got == want, f"launches after the reset {got}, expected "
           f"{want}")
     counted = {k: counted[k] + got[k] for k in counted}
@@ -2981,6 +3061,7 @@ def scene_phase(dev, n_gauss: int, height: int, width: int, tag: str,
         entry["launches"] += counted[key]
         if key in errs[0]:
             entry["max_abs_err_scene_densify"] = max(e[key] for e in errs)
+    G_LAUNCHES["scene_densify"] = counted["G"]
     check(mean_sq_dist_3nn.launches == 0, f"kernel F launched "
           f"{mean_sq_dist_3nn.launches} times by phase 9's steps, density "
           f"events, checkpoint and Scene reload")
@@ -3309,10 +3390,10 @@ def cli_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     out = os.path.join(root, "cli")
     out_sgd = os.path.join(root, "cli_sgd")
     prof = os.path.join(root, "cli_profile")
-    adam = {"A": 1, "B": 2, "C": 1, "D": 0, "E": 0}
+    adam = {"A": 1, "B": 2, "C": 1, "D": 0, "E": 0, "G": 1}
     # the entry points run on the card unless told otherwise
     plat = [] if dev.type == "cuda" else ["--platform", dev.type]
-    totals = {k: 0 for k in "ABCDE"}
+    totals = {k: 0 for k in "ABCDEG"}
     errs = {}
 
     # ---- 1. train.main: 300 Adam iterations, the viewer on ---------------
@@ -3412,7 +3493,8 @@ def cli_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     # iteration); the viewer: one A per frame
     want = {k: n_att * v for k, v in adam.items()}
     extras = 0 if "Tensorboard not available" in text else len(CLI_TESTS)
-    want["A"] += len(lp.evals) + len(stash) + extras
+    for k in "AG":        # each render runs the front end once
+        want[k] += len(lp.evals) + len(stash) + extras
     check(loop_launches == want, f"train.main launches {loop_launches}, "
           f"expected {want}")
     totals = {k: totals[k] + loop_launches[k] for k in totals}
@@ -3553,7 +3635,7 @@ def cli_phase(dev, n_gauss: int, height: int, width: int, tag: str,
                   f"the LM run does not start at iteration {CLI_ITERS}'s "
                   f"state")
         xyz = params.xyz.detach().clone()
-        before = launches()
+        before, n_probe = launches(), len(probes)
         t0 = time.perf_counter()
         if first:
             with jvp_inputs() as e_in, backward_inputs() as c_in:
@@ -3565,7 +3647,8 @@ def cli_phase(dev, n_gauss: int, height: int, width: int, tag: str,
         lm_calls.append((_delta(before, launches()), ms,
                          float(res[1]["best_val_loss"]),
                          torch.equal(res[0].xyz, xyz),
-                         (e_in[0], c_in[0]) if first else None))
+                         (e_in[0], c_in[0]) if first else None,
+                         len(probes) - n_probe))
         return res
 
     TL.lm_phase = lm_phase
@@ -3577,7 +3660,7 @@ def cli_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     zero_launches()
     t0 = time.perf_counter()
     try:
-        with entry_point() as tee:
+        with entry_point() as tee, probe_calls() as probes:
             TL.main(lm_argv)
     finally:
         TL.lm_phase = real_phase
@@ -3589,25 +3672,29 @@ def cli_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     text = tee.text()
     grow = [int(x) for x in re.findall(r"LM window exceeds record capacity: "
                                        r"growing to dup_capacity=(\d+)", text)]
-    lm_want = {"A": 71, "B": 0, "C": 4, "D": 0, "E": 6}
+    # G: one per front end, 71 renders and 6 J·v, and one per probe
+    lm_want = {"A": 71, "B": 0, "C": 4, "D": 0, "E": 6, "G": 77}
     print(f"{tag} train_lm.main: {CLI_LM_ITERS} LM iterations in {lm_s:.1f} s"
           f"; probe growth lines at dup_capacity {grow}"
           f"{' and the persists WARNING' if 'WARNING' in text else ''}; per "
           f"iteration: "
-          + "; ".join(f"launches {d}, {ms:.1f} ms, best val loss {v:.6f}, "
-                      f"xyz {'unchanged' if same else 'MOVED'}"
-                      for d, ms, v, same, _ in lm_calls)
+          + "; ".join(f"launches {d} ({n_p} probes), {ms:.1f} ms, best val "
+                      f"loss {v:.6f}, xyz {'unchanged' if same else 'MOVED'}"
+                      for d, ms, v, same, _, n_p in lm_calls)
           + f"; peak device memory {peak / 2**30:.2f} GiB", flush=True)
     check(len(lm_calls) == CLI_LM_ITERS, f"{len(lm_calls)} LM iterations")
-    check(all(d == lm_want for d, *_ in lm_calls),
-          f"LM iteration launches, expected {lm_want} each")
-    check(all(math.isfinite(v) and same for _, _, v, same, _ in lm_calls),
+    check(all(d == lm_want | {"G": lm_want["G"] + n_p}
+              for d, *_, n_p in lm_calls),
+          f"LM iteration launches, expected {lm_want} each, G one more per "
+          f"probe")
+    check(all(math.isfinite(v) and same for _, _, v, same, *_ in lm_calls),
           "an LM iteration's best validation loss is not finite, or xyz "
           "moved under mask_xyz")
     check(grow and all(b == 2 * a for a, b in zip([2_097_152] + grow, grow)),
           f"LM probe growth {grow}: expected doublings from 2097152")
-    check(lm_total == {k: CLI_LM_ITERS * v for k, v in lm_want.items()},
-          f"train_lm.main launches {lm_total}")
+    check(lm_total == {k: CLI_LM_ITERS * v for k, v in lm_want.items()}
+          | {"G": CLI_LM_ITERS * lm_want["G"] + len(probes)},
+          f"train_lm.main launches {lm_total}, {len(probes)} probes")
     totals = {k: totals[k] + lm_total[k] for k in totals}
     e_args, c_args = lm_calls[0][4]
     rec, tng, st, cn, ntx, nty = e_args[:6]
@@ -3673,8 +3760,9 @@ def cli_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     r_launch = launches()
     n_chunks = sum(-(-len(m) // 4) for m in (model.get_train_cameras(),
                                              model.get_test_cameras()))
-    check(r_launch == {"A": n_chunks, "B": 0, "C": 0, "D": 0, "E": 0},
-          f"render_sets launches {r_launch}, expected A {n_chunks}")
+    check(r_launch == {"A": n_chunks, "B": 0, "C": 0, "D": 0, "E": 0,
+                       "G": n_chunks},
+          f"render_sets launches {r_launch}, expected A and G {n_chunks}")
     for d in render_dirs:
         for sub in ("renders", "gt"):
             n = len(os.listdir(os.path.join(out, d, sub)))
@@ -3689,7 +3777,7 @@ def cli_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     metrics_s = time.perf_counter() - t0
     m_launch = launches()
     n_pairs = len(model.get_test_cameras())
-    check(m_launch == {"A": 0, "B": n_pairs, "C": 0, "D": 0, "E": 0},
+    check(m_launch == {"A": 0, "B": n_pairs, "C": 0, "D": 0, "E": 0, "G": 0},
           f"metrics launches {m_launch}, expected B {n_pairs}")
     for k in totals:
         totals[k] += r_launch[k] + m_launch[k]
@@ -3764,6 +3852,7 @@ def cli_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     for entry, key in zip(kernels, "ABCDE"):
         entry["launches_by_path"]["train_cli"] = totals[key]
         entry["launches"] += totals[key]
+    G_LAUNCHES["train_cli"] = totals["G"]
     kernels[0]["max_abs_err_train_cli"] = max(errs["adam"]["A"],
                                               errs["sgd_A"])
     kernels[1]["max_abs_err_train_cli"] = errs["adam"]["B"]
@@ -3898,7 +3987,7 @@ def depth_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     os.makedirs(depths)
     out = os.path.join(root, "depth")
     out_sgd = os.path.join(root, "depth_sgd")
-    adam = {"A": 1, "B": 2, "C": 1, "D": 0, "E": 0}
+    adam = {"A": 1, "B": 2, "C": 1, "D": 0, "E": 0, "G": 1}
 
     # the view that comes out unreliable: one the SGD windows take, in the
     # train order the loop's Scene makes (random.Random(0) over the
@@ -4023,7 +4112,8 @@ def depth_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     n_att = len(lp.attempts)
     want = {k: n_att * v for k, v in adam.items()}
     extras = 0 if "Tensorboard not available" in text else 1
-    want["A"] += len(lp.evals) + extras
+    for k in "AG":        # each render runs the front end once
+        want[k] += len(lp.evals) + extras
     check(loop_launches == want, f"train.main -d launches {loop_launches}, "
           f"expected {want}")
     check(len(flags) == n_att == loop_launches["C"] and all(flags),
@@ -4123,6 +4213,7 @@ def depth_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     for entry, key in zip(kernels, "ABCDE"):
         entry["launches_by_path"]["scene_depth"] = totals[key]
         entry["launches"] += totals[key]
+    G_LAUNCHES["scene_depth"] = totals["G"]
     kernels[2]["max_abs_err_scene_depth"] = c_err
     kernels[2]["depth_grad_launches"] = loop_launches["C"] + sgd_total["C"]
     kernels[2]["ms_depth_grad"] = c_true
@@ -4225,9 +4316,11 @@ def lpips_parity_phase(dev, tag: str, kernels: list[dict], model: str,
               f"metrics reported LPIPS {results['LPIPS']}")
         n_pairs = len(os.listdir(os.path.join(model, "test", method,
                                               "renders")))
-        check(m_launch == {"A": 0, "B": n_pairs, "C": 0, "D": 0, "E": 0},
+        check(m_launch == {"A": 0, "B": n_pairs, "C": 0, "D": 0, "E": 0,
+                           "G": 0},
               f"metrics launches {m_launch}, expected B {n_pairs}")
-        check(r_launch["A"] >= 1 and r_launch["B"] == r_launch["C"] == 0,
+        check(r_launch["A"] >= 1 and r_launch["B"] == r_launch["C"] == 0
+              and r_launch["G"] == r_launch["A"],
               f"render_sets launches {r_launch}")
         pairs = lpips_pairs(f"render_sets' {method}",
                             os.path.join(model, "test", method), dev)
@@ -4278,6 +4371,7 @@ def lpips_parity_phase(dev, tag: str, kernels: list[dict], model: str,
         n = r_launch[key] + m_launch[key]
         entry["launches_by_path"]["lpips_metrics"] = n
         entry["launches"] += n
+    G_LAUNCHES["lpips_metrics"] = r_launch["G"]
 
     # ---- the parity matrix at full size ------------------------------------
     zero_launches()
@@ -4598,7 +4692,7 @@ def dp_rank_body(rank: int, world: int, dev, src: str, root: str,
               active_sh_degree=3, use_exp=False, sparse_adam=False,
               update_stats=True)
     start = (params, GaussianAux.zeros(n_gauss, dev), init_adam(params))
-    totals = {k: 0 for k in "ABCDE"}
+    totals = {k: 0 for k in "ABCDEG"}
 
     def count(before):
         after = launches()
@@ -4825,14 +4919,18 @@ def dp_phase(dev, n_gauss: int, height: int, width: int, tag: str,
         for k in "ABCE":
             check(r["totals"][k] > 0, f"rank {r['rank']} never launched "
                                       f"kernel {k} on the data-parallel path")
-        check(r["adam_launches"]["A"] == 1 and r["adam_launches"]["C"] == 1
-              and r["lm_launches"]["E"] > 0,
-              f"rank {r['rank']} data-parallel launches")
+        adam, lm = r["adam_launches"], r["lm_launches"]
+        check(adam["A"] == 1 and adam["C"] == 1 and adam["G"] == 1
+              and lm["E"] > 0 and lm["G"] == lm["A"] + lm["E"],
+              f"rank {r['rank']} data-parallel launches: Adam {adam}, LM "
+              f"{lm}")
     for entry, k in zip(kernels, "ABCDE"):
         for r in ranks:
             n = r["totals"][k]
             entry["launches_by_path"][f"data_parallel_rank{r['rank']}"] = n
             entry["launches"] += n
+    for r in ranks:
+        G_LAUNCHES[f"data_parallel_rank{r['rank']}"] = r["totals"]["G"]
     print(f"{tag} phase 13 wall {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
@@ -4848,9 +4946,9 @@ MP_VAL_VIEWS = 5        # train_lm.main --mesh_model 2: --num_val_views
 MP_TIMEOUT = 900.0      # join timeout of the ranks (s)
 # per rank: the Adam step (band render, SSIM blur forward and VJP, band
 # backward); the LM step (1 linearization + 7 one-pass val renders, Jᵀ·u
-# and J·v as in lm_outer_step)
-MP_ADAM_LAUNCHES = {"A": 1, "B": 2, "C": 1, "D": 0, "E": 0}
-MP_LM_LAUNCHES = {"A": 8, "B": 0, "C": 4, "D": 0, "E": 6}
+# and J·v as in lm_outer_step); G once per band render and J·v
+MP_ADAM_LAUNCHES = {"A": 1, "B": 2, "C": 1, "D": 0, "E": 0, "G": 1}
+MP_LM_LAUNCHES = {"A": 8, "B": 0, "C": 4, "D": 0, "E": 6, "G": 14}
 
 
 def mp_collectives(dev, mesh) -> dict:
@@ -5043,7 +5141,7 @@ def mp_rank_body(rank: int, world: int, dev, src: str, root: str,
     out["gloo_cuda"] = mp_collectives(dev, mesh)
     check(all(v is True for v in out["gloo_cuda"].values()),
           f"gloo on {dev.type} tensors: {out['gloo_cuda']}")
-    totals = {k: 0 for k in "ABCDE"}
+    totals = {k: 0 for k in "ABCDEG"}
 
     def sync():
         sync_device(dev)
@@ -5132,8 +5230,8 @@ def mp_rank_body(rank: int, world: int, dev, src: str, root: str,
             check(out["render"][name]["pad_zero"], f"rank {rank}'s loss band "
                   f"has nonzero rows past H ({name})")
             check(out["render"][name]["overflow"] == 0, f"{name} overflows")
-            check(got["A"] == 1 and sum(got.values()) == 1,
-                  f"band render launches {got}")
+            check(got == {"A": 1, "B": 0, "C": 0, "D": 0, "E": 0, "G": 1},
+                  f"band render launches {got}: expected A and G once")
             del img, invd, info
         del single
         # the exchange's and the reduce-scatter's times at this view
@@ -5478,6 +5576,8 @@ def mp_phase(dev, n_gauss: int, m1_n: int, height: int, width: int,
             n = r["totals"][k]
             entry["launches_by_path"][f"model_parallel_rank{r['rank']}"] = n
             entry["launches"] += n
+    for r in ranks:
+        G_LAUNCHES[f"model_parallel_rank{r['rank']}"] = r["totals"]["G"]
     print(f"{tag} phase 14 wall {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
@@ -5567,6 +5667,8 @@ def quality_body(dev, tag: str) -> dict:
     for ph, w in want.items():
         got = {k: r["launches"][ph][k] for k in w}
         check(got == w, f"15 {s}: launches of {ph} {got}, expected {w}")
+    check(totals["G"] == totals["A"] + totals["E"], f"15 {s}: kernel G "
+          f"launched {totals['G']} times, expected once per render and J·v")
     check(d_lm > 0.1, f"15 {s}: LM gain {d_lm:.3f} dB")
     check(d_lm > d_adam - 0.05, f"15 {s}: LM gain {d_lm:.3f} dB against "
           f"Adam's {d_adam:.3f}")
@@ -5658,6 +5760,7 @@ def quality_finish(started, tag: str, kernels: list[dict]) -> None:
         entry["launches"] += res["totals"][k]
         if k in res["errs"]:
             entry["max_abs_err_quality"] = res["errs"][k]
+    G_LAUNCHES["quality_small_64"] = res["totals"]["G"]
     print(f"{tag} phase 15 wall {time.perf_counter() - t_phase:.1f} s, "
           f"started before phase 11", flush=True)
 

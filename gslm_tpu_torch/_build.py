@@ -57,6 +57,9 @@ SIGNATURES = {
             "knn_mean_sq_dist_pairs": [_VP, _VP, _VP, _VP, _I, _VP, _VP, _VP,
                                        _VP, _VP, _VP],
             "knn_attrs": [_VP]},
+    "cell_masks": {"cell_masks": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
+                                  _I, _VP, _VP, _VP, _VP, _VP, _VP],
+                   "cell_masks_attrs": [_VP]},
 }
 
 

@@ -22,6 +22,7 @@ import dataclasses
 
 import torch
 
+from gslm_tpu_torch import _build
 from gslm_tpu_torch.ops.projection import TILE, Splats2D, quad_min_rect
 from gslm_tpu_torch.struct import Struct
 from gslm_tpu_torch.utils.profiling import span
@@ -125,8 +126,8 @@ def bucket_splats(splats: Splats2D, bucket: int) -> Splats2D:
                           tile_count=count.to(splats.tile_count.dtype))
 
 
-def _cell_masks(splats: Splats2D, view_rows: int, cwb: int,
-                tile_px: int = TILE):
+def _cell_masks_plain(splats: Splats2D, view_rows: int, cwb: int,
+                      tile_px: int = TILE):
     """Per-Gaussian 8×8-cell survival masks for exact ellipse–tile culling.
 
     Each rect is cut into an 8×8 grid of cells of cw×ch whole grid units
@@ -172,6 +173,54 @@ def _cell_masks(splats: Splats2D, view_rows: int, cwb: int,
         nlive = nlive + torch.where(keep, nx * ny, 0)
     nlive = torch.where(splats.tile_count > 0, nlive, 0)
     return words[0], words[1], words[2], (ch << cwb) | cw, nlive
+
+
+def _cell_masks(splats: Splats2D, view_rows: int, cwb: int,
+                tile_px: int = TILE):
+    """``_cell_masks_plain``'s five int32 outputs. CUDA tensors go through
+    kernel G (csrc/cell_masks.cu), one launch, bit for bit the plain
+    version's (or the call raises); CPU tensors take the plain version.
+    The kernel reads primals only: forward-AD duals are detached, the
+    outputs being integers."""
+    dev = splats.mean2d.device
+    if dev.type == "cpu":
+        return _cell_masks_plain(splats, view_rows, cwb, tile_px)
+    if dev.type != "cuda":
+        raise TypeError(f"_cell_masks takes CPU or CUDA tensors, got {dev}")
+    P = splats.mean2d.shape[0]
+    # contiguous: a no-op on the main path; the model axis's packed rows
+    # are copied (held until the launch, so no copy is freed early)
+    mean2d, conic, opacity = (t.detach().contiguous() for t in (
+        splats.mean2d, splats.conic, splats.opacity))
+    rect_min, rect_max, tile_count = (t.detach().contiguous() for t in (
+        splats.rect_min, splats.rect_max, splats.tile_count))
+    if (any(t.dtype != torch.float32 or t.device != dev
+            for t in (mean2d, conic, opacity))
+            or any(t.dtype != torch.int32 or t.device != dev
+                   for t in (rect_min, rect_max, tile_count))
+            or tuple(mean2d.shape) != (P, 2) or tuple(conic.shape) != (P, 3)
+            or tuple(opacity.shape) != (P,)
+            or tuple(rect_min.shape) != (P, 2)
+            or tuple(rect_max.shape) != (P, 2)
+            or tuple(tile_count.shape) != (P,)):
+        raise TypeError(f"_cell_masks needs float32 mean2d (P, 2), conic "
+                        f"(P, 3) and opacity (P,), int32 rect_min and "
+                        f"rect_max (P, 2) and tile_count (P,), all on {dev}")
+    # five allocations, freed one by one as the plain version's are
+    out = tuple(torch.empty(P, dtype=torch.int32, device=dev)
+                for _ in range(5))
+    if P:
+        rc = _build.load("cell_masks").cell_masks(
+            rect_min.data_ptr(), rect_max.data_ptr(), mean2d.data_ptr(),
+            conic.data_ptr(), opacity.data_ptr(), tile_count.data_ptr(), P,
+            view_rows, cwb, tile_px, *(t.data_ptr() for t in out),
+            torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(rc, "cell_masks")
+        _cell_masks.launches += 1
+    return out
+
+
+_cell_masks.launches = 0   # kernel G launches in this process
 
 
 @torch.no_grad()

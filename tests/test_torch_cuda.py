@@ -52,7 +52,14 @@ F (the 3-NN grid search) equal to its plain version with ``torch.equal``
 and to itself on tests/knn_cases.py's clouds (points on cell faces,
 coplanar, collinear, identical, duplicates, P from 1 to 5, far outliers)
 and on 100,000 uniform and clustered points; ``create_from_pcd`` launches
-it once."""
+it once. Kernel G (the cull masks) equal to ``_cell_masks_plain`` on the
+card bit for bit, all five outputs: the small scene at tile_px 16, 32 and
+64, two stacked views, seeded splats at the masks' edges (rects over 8
+units, opacity under 1/255 and at the 1e-12 clamp, b² near a·c, a and c at
+the clamp, tile_count 0), fields that are strided views of packed rows,
+forward-AD duals, a 1,048,576-Gaussian 1080p
+view; ``duplicate_sort_ranges`` with it equal to its run on the plain
+masks, one launch a call."""
 
 import numpy as np
 import pytest
@@ -64,7 +71,8 @@ from gslm_tpu_torch.densify import densify_and_prune
 from gslm_tpu_torch.models.gaussians import (PARAM_GROUPS, GaussianAux,
                                              params_from_numpy)
 from gslm_tpu_torch.ops.blur_cuda import blur, blur_plain, blur_same
-from gslm_tpu_torch.ops.projection import preprocess
+from gslm_tpu_torch.ops import rasterize_tiled
+from gslm_tpu_torch.ops.projection import Splats2D, preprocess
 from gslm_tpu_torch.ops.rasterize_cuda import (
     BucketSegments, bucket_of_tile, composite_tiles,
     composite_tiles_bucket_bwd, composite_tiles_bucket_bwd_plain,
@@ -75,7 +83,7 @@ from gslm_tpu_torch.ops.rasterize_cuda import (
 from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig
 from gslm_tpu_torch.ops.ssim import gaussian_taps
 from gslm_tpu_torch.optim import AdamState, init_adam
-from gslm_tpu_torch.renderer import batch_render, render
+from gslm_tpu_torch.renderer import batch_render, render, stack_views
 from gslm_tpu_torch.train import loss_and_grads, train_step
 from gslm_tpu_torch.train_lm import lm_outer_step
 from gslm_tpu_torch.utils.synthetic import (clustered_cloud, random_gaussians,
@@ -912,3 +920,187 @@ def test_knn_kernel_under_create_from_pcd(cuda):
     assert torch.equal(params.scaling[:5000, 0], want)
     out, pairs, _ = search(build_grid(x), count_pairs=True)
     assert torch.equal(out, msd) and int(pairs.min()) >= 3
+
+
+def _view_splats(cuda, n, height, width, views=1, seed=0):
+    """Seeded random Gaussians preprocessed for ``views`` ring views,
+    stacked: (splats, tile columns, tile rows a view)."""
+    params = random_gaussians(np.random.default_rng(seed), n=n, spread=1.5,
+                              device=cuda)
+    with torch.no_grad():
+        splats, _, nty = stack_views(
+            params, ring_camera_batch(views, height, width, device=cuda))
+    return splats, -(-width // 16), nty
+
+
+def _edge_splats(cuda, n=60_000, seed=11):
+    """Seeded splats at the masks' edges, in three stacked views of 24
+    tile rows: rects 0-70 units wide and tall (cw, ch up to 9, partial last
+    cells; an empty rect clamps to one unit), means inside and beyond
+    them, opacity under 1/255 (s2 < 0) and about the 1e-12 clamp, a and c
+    log-uniform over [1e-14, 1] with some exactly at, under and at zero
+    below the clamp, b² within 1e-7 to 1e-1 of a·c (and at it), tile_count
+    0 on a sixth of the rows."""
+    rng = np.random.default_rng(seed)
+    x0 = rng.integers(0, 50, n)
+    y0 = rng.integers(0, 72, n)
+    size = np.where(rng.random(n) < 0.5, rng.integers(0, 9, (2, n)),
+                    rng.integers(0, 71, (2, n)))
+    x1, y1 = x0 + size[0], y0 + size[1]
+    count = np.where(rng.random(n) < 1 / 6, 0, size[0] * size[1])
+    cx = (x0 + size[0] * rng.uniform(-0.3, 1.3, n)) * 16
+    cy = ((y0 % 24) + size[1] * rng.uniform(-0.3, 1.3, n)) * 16
+    a = 10.0 ** rng.uniform(-14, 0, n)
+    c = 10.0 ** rng.uniform(-14, 0, n)
+    for v, k in ((a, 0), (c, 1)):
+        pick = rng.random(n)
+        v[pick < 0.03] = np.float32(1e-12)
+        v[(pick >= 0.03) & (pick < 0.05)] = 1e-13
+        v[(pick >= 0.05) & (pick < 0.06)] = -1e-3 * (k + 1)
+        v[(pick >= 0.06) & (pick < 0.07)] = 0.0
+    near = np.sqrt(np.abs(a * c)) * (1 - 10.0 ** rng.uniform(-7, -1, n))
+    b = np.where(rng.random(n) < 0.1, np.sqrt(np.abs(a * c)), near) \
+        * rng.choice([-1.0, 1.0], n)
+    op = rng.uniform(0, 1, n)
+    pick = rng.random(n)
+    op[pick < 0.2] = rng.uniform(0, 1 / 255, n)[pick < 0.2]
+    op[(pick >= 0.2) & (pick < 0.25)] = (1e-12 / 255 * rng.uniform(
+        0.5, 2, n))[(pick >= 0.2) & (pick < 0.25)]
+    op[(pick >= 0.25) & (pick < 0.27)] = 0.0
+    op[(pick >= 0.27) & (pick < 0.29)] = np.float32(1 / 255)
+
+    def f32(x):
+        return torch.tensor(np.asarray(x, np.float32), device=cuda)
+
+    def i32(x):
+        return torch.tensor(np.asarray(x, np.int32), device=cuda)
+
+    return Splats2D(
+        mean2d=f32(np.stack([cx, cy], -1)), conic=f32(np.stack([a, b, c], -1)),
+        color=f32(np.zeros((n, 3))), opacity=f32(op), depth=f32(np.ones(n)),
+        invdepth=f32(np.ones(n)), radius=i32(np.ones(n)),
+        rect_min=i32(np.stack([x0, y0], -1)),
+        rect_max=i32(np.stack([x1, y1], -1)), tile_count=i32(count),
+        visible=torch.tensor(count > 0, device=cuda))
+
+
+def _masks_equal(splats, view_rows, ntx, tile_px=16):
+    """Kernel G on ``splats`` against the plain version, each of the five
+    outputs bit for bit, and one launch."""
+    cwb = max(rasterize_tiled._cdiv(ntx, 8).bit_length(), 1)
+    n0 = rasterize_tiled._cell_masks.launches
+    got = rasterize_tiled._cell_masks(splats, view_rows, cwb, tile_px)
+    assert rasterize_tiled._cell_masks.launches == n0 + 1
+    want = rasterize_tiled._cell_masks_plain(splats, view_rows, cwb, tile_px)
+    torch.cuda.synchronize()
+    assert len(got) == 5
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype == torch.int32, k
+        assert torch.equal(g, w), (k, int((g != w).sum()))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucket", [1, 2, 4])
+def test_cell_masks_kernel_equals_plain(cuda, bucket):
+    """The small scene's view (13x8 tiles) at tile_px 16, and on the bucket
+    grids of 2 and 4 tiles (tile_px 32 and 64)."""
+    splats, ntx, nty = _view_splats(cuda, 4096, 120, 200)
+    if bucket > 1:
+        splats = rasterize_tiled.bucket_splats(splats, bucket)
+    got = _masks_equal(splats, nty // bucket,
+                       rasterize_tiled._cdiv(ntx, bucket), 16 * bucket)
+    assert int(got[4].sum()) > 1000
+
+
+@pytest.mark.cuda
+def test_cell_masks_kernel_on_stacked_views(cuda):
+    """Two stacked views: the rows wrap modulo view_rows."""
+    splats, ntx, nty = _view_splats(cuda, 4096, 120, 200, views=2, seed=3)
+    assert int(splats.rect_min[:, 1].max()) >= nty
+    _masks_equal(splats, nty, ntx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_px", [16, 64])
+def test_cell_masks_kernel_at_the_edges(cuda, tile_px):
+    """``_edge_splats``: wide rects, thin opacities, near-degenerate and
+    clamped conics, rows with tile_count 0."""
+    splats = _edge_splats(cuda)
+    assert int((splats.rect_max - splats.rect_min).max()) > 64
+    got = _masks_equal(splats, 24, 60, tile_px)
+    empty = splats.tile_count == 0
+    assert bool((got[4][empty] == 0).all())
+    assert bool((got[0][empty] != 0).any())        # words are kept there
+    kept = got[4][~empty]
+    assert bool((kept > 0).any()) and bool((kept == 0).any())
+
+
+@pytest.mark.cuda
+def test_cell_masks_kernel_on_packed_rows(cuda):
+    """Fields that are column views of packed rows, as the model axis
+    exchanges them (``parallel/model_raster._band_splats``): the wrapper
+    copies them contiguous, and G gives its contiguous-input words."""
+    splats = _edge_splats(cuda, n=20_000, seed=12)
+    fl = torch.cat([splats.mean2d, splats.conic, splats.opacity[:, None],
+                    torch.zeros(20_000, 5, device=cuda)], dim=1)
+    it = torch.cat([splats.rect_min, splats.rect_max,
+                    splats.tile_count[:, None]], dim=1)
+    packed = splats.replace(mean2d=fl[:, 0:2], conic=fl[:, 2:5],
+                            opacity=fl[:, 5], rect_min=it[:, 0:2],
+                            rect_max=it[:, 2:4], tile_count=it[:, 4])
+    assert packed.conic.stride(0) == 11 and packed.tile_count.stride(0) == 5
+    got = _masks_equal(packed, 24, 60)
+    want = rasterize_tiled._cell_masks(
+        splats, 24, max(rasterize_tiled._cdiv(60, 8).bit_length(), 1))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cell_masks_kernel_on_dual_splats(cuda):
+    """Forward-AD duals (the LM solver's J·v renders) give the primal's
+    words."""
+    splats, ntx, nty = _view_splats(cuda, 4096, 120, 200)
+    gen = torch.Generator(cuda).manual_seed(2)
+    cwb = max(rasterize_tiled._cdiv(ntx, 8).bit_length(), 1)
+    want = rasterize_tiled._cell_masks_plain(splats, nty, cwb)
+    with fwAD.dual_level():
+        dual = splats.replace(**{
+            f: fwAD.make_dual(getattr(splats, f), torch.randn(
+                getattr(splats, f).shape, device=cuda, generator=gen))
+            for f in ("mean2d", "conic", "opacity")})
+        got = rasterize_tiled._cell_masks(dual, nty, cwb)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cell_masks_kernel_at_size(cuda):
+    """One 1080p view of 1,048,576 seeded Gaussians."""
+    splats, ntx, nty = _view_splats(cuda, 1 << 20, 1080, 1920, seed=4)
+    got = _masks_equal(splats, nty, ntx)
+    assert int(got[4].sum()) > 1_000_000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("views,bucket", [(1, 1), (2, 1), (1, 2)])
+def test_duplicate_sort_ranges_with_kernel_g_equals_plain(cuda, monkeypatch,
+                                                          views, bucket):
+    """Stages 1-3 through kernel G (one launch) against the same stages on
+    the plain masks: order, rank, starts, ends and both totals equal."""
+    splats, ntx, nty = _view_splats(cuda, 4096, 120, 200, views=views, seed=6)
+    if bucket > 1:
+        splats = rasterize_tiled.bucket_splats(splats, bucket)
+    args = (splats, rasterize_tiled._cdiv(ntx, bucket),
+            views * nty // bucket, 1 << 16)
+    kw = dict(view_rows=nty // bucket, cull=True, tile_px=16 * bucket)
+    n0 = rasterize_tiled._cell_masks.launches
+    got = rasterize_tiled.duplicate_sort_ranges(*args, **kw)
+    assert rasterize_tiled._cell_masks.launches == n0 + 1
+    monkeypatch.setattr(rasterize_tiled, "_cell_masks",
+                        rasterize_tiled._cell_masks_plain)
+    want = rasterize_tiled.duplicate_sort_ranges(*args, **kw)
+    for g, w in zip(got[:4], want[:4]):
+        assert torch.equal(g, w)
+    assert [int(t) for t in got[4]] == [int(t) for t in want[4]]
+    assert int(got[4][0]) < int(got[4][1])          # the cull dropped some

@@ -74,6 +74,57 @@ def test_cell_masks_match_jax(single_view):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
 
 
+def test_cell_masks_on_cpu_take_the_plain_version(single_view, monkeypatch):
+    """CPU tensors never reach kernel G: with the kernel loader made to
+    raise, ``_cell_masks`` alone and under ``duplicate_sort_ranges`` gives
+    the plain version's outputs and counts no launch."""
+    from gslm_tpu_torch import _build
+
+    def refuse(name):
+        raise AssertionError(f"loaded the CUDA library {name!r}")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    _, ts = single_view
+    cwb = max(trt._cdiv(NTX, 8).bit_length(), 1)
+    n0 = trt._cell_masks.launches
+    for a, b in zip(trt._cell_masks(ts, NTY, cwb),
+                    trt._cell_masks_plain(ts, NTY, cwb)):
+        assert a.dtype == b.dtype and bool((a == b).all())
+    assert int(trt.duplicate_sort_ranges(ts, NTX, NTY, 1 << 12,
+                                         cull=True)[3][-1]) > 100
+    assert trt._cell_masks.launches == n0
+
+
+@pytest.mark.parametrize("bucket", [1, 2, 4])
+def test_parity_calls_reach_the_plain_masks(single_view, monkeypatch,
+                                            bucket):
+    """The front-end calls of this file's JAX-parity tests and of
+    tests/test_torch_bucket.py's (tile_px = 16·bucket) reach
+    ``_cell_masks_plain``: JAX holds the plain version, kernel G's
+    reference."""
+    _, ts = single_view
+    plain, seen = trt._cell_masks_plain, []
+
+    def spy(splats, view_rows, cwb, tile_px=16):
+        seen.append(tile_px)
+        return plain(splats, view_rows, cwb, tile_px)
+
+    monkeypatch.setattr(trt, "_cell_masks_plain", spy)
+    sp = ts if bucket == 1 else trt.bucket_splats(ts, bucket)
+    nbx = trt._cdiv(NTX, bucket)
+    cwb = max(trt._cdiv(nbx, 8).bit_length(), 1)
+    trt._cell_masks(sp, NTY, cwb, 16 * bucket)
+    trt.duplicate_sort_ranges(sp, nbx, NTY, 1 << 12, view_rows=NTY,
+                              cull=True, tile_px=16 * bucket)
+    assert seen == [16 * bucket] * 2
+
+
+def test_cell_masks_refuse_other_devices(single_view):
+    _, ts = single_view
+    with pytest.raises(TypeError, match="CPU or CUDA"):
+        trt._cell_masks(ts.replace(mean2d=ts.mean2d.to("meta")), NTY, 1)
+
+
 def test_overflow_totals_match_jax(single_view):
     """Under a starved capacity both report the same totals (the images
     are discarded by callers then, so only the counts are compared)."""
