@@ -268,8 +268,8 @@ failed phase exits non-zero:
    kernels A, B and C on an Adam step's inputs at seed 0's plateau and E
    on its first LM step's against their plain versions. Prints the
    plateau, gains, phase times, launches and largest tile loads.
-16. a ``{"kernels": [...]}`` line (A-E, then F and G), then the last line
-   ``{"ok": true, "device": {...}}``.
+16. a ``{"kernels": [...]}`` line (A-E, then F, G and H), then the last
+   line ``{"ok": true, "device": {...}}``.
 
 Kernel G (the front end's cull masks) runs once per front end: once per
 render (kernel A) and per J·v (kernel E), and once per ``overflow_probe``
@@ -282,6 +282,17 @@ Phase 4 holds it bit for bit (``torch.equal``, all five outputs) to
 ``_cell_masks_plain`` on the 4-view stack and times both against its byte
 bound; its entry in the kernels line gives its launches by path.
 
+Kernel H (the per-Gaussian preprocess) runs once per view of every
+preprocess that needs no autograd: 1 per ``render`` and per view of a
+``batch_render`` or ``overflow_probe`` under ``no_grad``, none in
+``train_step`` and Adam or SGD attempts (their preprocess records
+autograd), none in J·v (forward-AD duals) or the LM linearization, 350
+per ``lm_outer_step`` (7 alphas x 50 validation views). Every phase's
+launch checks count it. Phase 4 holds it bit for bit to
+``preprocess_plain`` on each view of the 4-view stack (every field of
+``Splats2D``) and times both against its byte bound; its entry in the
+kernels line gives its launches by path.
+
 Imports nothing of JAX or of gslm_tpu. It finds the package beside itself
 however it is started; without the package beside it, or without CUDA, it
 exits non-zero before printing any result.
@@ -290,6 +301,7 @@ exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import pathlib
@@ -314,8 +326,9 @@ CAPS = dict(dup_capacity=VIEWS * 1_638_400, live_capacity=VIEWS * 1_280_000,
 LM_CAPS = dict(dup_capacity=6_654_208, live_capacity=5_469_696, cull=True)
 # per lm_outer_step: A = 1 linearization + 7 alphas x 10 val chunks; C = 2
 # restarts + 2 iterations (Jᵀ·u); E = 2 restarts + 2 iterations + 2
-# divergence checks (J·v); G = one per front end, A + E
-LM_LAUNCHES = {"A": 71, "B": 0, "C": 4, "E": 6, "G": 77}
+# divergence checks (J·v); G = one per front end, A + E; H = one per view
+# of the no-grad validation renders, 7 alphas x 50 views
+LM_LAUNCHES = {"A": 71, "B": 0, "C": 4, "E": 6, "G": 77, "H": 350}
 EXPOSURES = 50         # bench.py's exposure images
 TRAIN_STEPS = 10       # steps over which the loss must fall
 PEAK_FP32 = 67e12      # H100 SXM fp32 outside the tensor cores, FLOP/s
@@ -323,6 +336,11 @@ PEAK_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s
 G_BYTES = 64           # kernel G's bytes per Gaussian: 44 read, 20 written
 # kernel G's launches by path, filled as each phase checks them
 G_LAUNCHES: dict[str, int] = {}
+# kernel H's bytes per Gaussian at SH degree 3: 237 read (xyz, scaling,
+# rotation, opacity, 48 SH floats, alive), 69 written (Splats2D)
+H_BYTES = 306
+# kernel H's launches by path, likewise
+H_LAUNCHES: dict[str, int] = {}
 # Issue rates behind PEAK_FP32 (an FMA counts two FLOPs): 128 fp32 lanes
 # per SM per clock, each taking one FFMA, FADD or FMUL; the SFU (MUFU) has
 # 16 lanes per SM per clock.
@@ -532,10 +550,12 @@ def blur_inputs():
 def _counted_wrappers() -> dict:
     from gslm_tpu_torch.ops import rasterize_cuda as rc
     from gslm_tpu_torch.ops.blur_cuda import blur_same
+    from gslm_tpu_torch.ops.projection import preprocess_cuda
     from gslm_tpu_torch.ops.rasterize_tiled import _cell_masks
     return {"A": rc.composite_tiles, "B": blur_same,
             "C": rc.composite_tiles_bwd, "D": rc.composite_tiles_bucket_bwd,
-            "E": rc.composite_tiles_jvp, "G": _cell_masks}
+            "E": rc.composite_tiles_jvp, "G": _cell_masks,
+            "H": preprocess_cuda}
 
 
 def launches() -> dict:
@@ -1134,13 +1154,16 @@ def run(dev, n_gauss: int, height: int, width: int) -> None:
              "F": kernel_attrs(_build.load("knn"), "knn_attrs",
                                F_INSTANCES),
              "G": kernel_attrs(_build.load("cell_masks"), "cell_masks_attrs",
-                               ("thread per Gaussian",))}
+                               ("thread per Gaussian",)),
+             "H": kernel_attrs(_build.load("preprocess"), "preprocess_attrs",
+                               ("degree 3, 128-thread blocks",))}
     for k, v in attrs.items():
         print(f"kernel {k} registers, static shared bytes, resident "
-              f"256-thread blocks per SM: {v}", flush=True)
+              f"{128 if k == 'H' else 256}-thread blocks per SM: {v}",
+              flush=True)
 
     tag = f"[{card}]"
-    kernels, g_entry = serve_phase(dev, n_gauss, height, width, tag)
+    kernels, g_entry, h_entry = serve_phase(dev, n_gauss, height, width, tag)
     kernels.append(train_phase(dev, n_gauss, height, width, tag, kernels))
     e_entry, lm_ref = lm_phase(dev, n_gauss, height, width, tag, kernels)
     kernels.append(e_entry)
@@ -1181,7 +1204,9 @@ def run(dev, n_gauss: int, height: int, width: int) -> None:
             entry["attrs"] = attrs[k]
     g_entry.update(attrs=attrs["G"], launches=sum(G_LAUNCHES.values()),
                    launches_by_path=dict(G_LAUNCHES))
-    kernels.append(g_entry)
+    h_entry.update(attrs=attrs["H"], launches=sum(H_LAUNCHES.values()),
+                   launches_by_path=dict(H_LAUNCHES))
+    kernels += [g_entry, h_entry]
     sass_totals()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1189,14 +1214,16 @@ def run(dev, n_gauss: int, height: int, width: int) -> None:
 
 
 def serve_phase(dev, n_gauss: int, height: int, width: int,
-                tag: str) -> tuple[list[dict], dict]:
-    """Phases 2-4. Returns the kernel entries of A and B, and kernel G's
-    (its launches by path filled in at the end of the run)."""
+                tag: str) -> tuple[list[dict], dict, dict]:
+    """Phases 2-4. Returns the kernel entries of A and B, and kernels G's
+    and H's (their launches by path filled in at the end of the run)."""
     import torch
 
     from gslm_tpu_torch.eval.metrics import pair_metrics
     from gslm_tpu_torch.ops.blur_cuda import blur_plain, blur_same
-    from gslm_tpu_torch.ops.projection import preprocess
+    from gslm_tpu_torch.ops.projection import (Splats2D, preprocess,
+                                               preprocess_cuda,
+                                               preprocess_plain)
     from gslm_tpu_torch.ops.rasterize_cuda import (IMG_ROWS,
                                                    composite_tiles,
                                                    composite_tiles_bwd,
@@ -1254,18 +1281,21 @@ def serve_phase(dev, n_gauss: int, height: int, width: int,
         blur_same.launches = 0
         composite_tiles_bwd.launches = 0
         _cell_masks.launches = 0
+        preprocess_cuda.launches = 0
         out = batch_render(params, cams, bg, config=cfg)
         metrics = [pair_metrics(out.render[v], cams.gt_image[v])
                    for v in range(VIEWS)]
         torch.cuda.synchronize()
         launches = {"A": composite_tiles.launches, "B": blur_same.launches,
                     "C": composite_tiles_bwd.launches,
-                    "G": _cell_masks.launches}
+                    "G": _cell_masks.launches,
+                    "H": preprocess_cuda.launches}
         print(f"serving path launches: {launches}", flush=True)
-        check(launches == {"A": 1, "B": VIEWS, "C": 0, "G": 1},
+        check(launches == {"A": 1, "B": VIEWS, "C": 0, "G": 1, "H": VIEWS},
               f"serving path launches {launches}: expected A and G once per "
-              f"batch_render, B once per pair, C never")
+              f"batch_render, B once per pair, H once per view, C never")
         G_LAUNCHES["serve"] = launches["G"]
+        H_LAUNCHES["serve"] = launches["H"]
         check(int(out.overflow) == 0, f"overflow (n_duplicates "
               f"{int(out.n_duplicates)})")
         check(out.render.shape == (VIEWS, 3, height, width), "render shape")
@@ -1316,6 +1346,25 @@ def serve_phase(dev, n_gauss: int, height: int, width: int,
               "stack")
         del g_got, g_want
 
+        # kernel H against the plain graph on each view of the same stack
+        h_equal = {}
+        for v in range(VIEWS):
+            kw = dict(active_sh_degree=3, alive=params.alive)
+            h_got = preprocess(params, cams.view(v), **kw)
+            h_want = preprocess_plain(params, cams.view(v), **kw)
+            for f in dataclasses.fields(Splats2D):
+                a, b = getattr(h_got, f.name), getattr(h_want, f.name)
+                if a.dtype.is_floating_point:
+                    a, b = a.view(torch.int32), b.view(torch.int32)
+                h_equal[f.name] = h_equal.get(f.name, True) and torch.equal(
+                    a, b)
+        print(f"kernel H vs plain ({VIEWS}-view stack, {VIEWS} x "
+              f"{params.capacity} rows): fields bitwise equal {h_equal}",
+              flush=True)
+        check(all(h_equal.values()), "kernel H differs from preprocess_plain "
+              "on the stack's views")
+        del h_got, h_want
+
         small = random_gaussians(np.random.default_rng(1), n=2048,
                                  spread=1.5, device=dev)
         scams = ring_camera_batch(1, 72, 96, device=dev)
@@ -1352,6 +1401,12 @@ def serve_phase(dev, n_gauss: int, height: int, width: int,
             lambda: composite_tiles_plain(rec, st, cn, ntx, nty), 2)
         g_plain_ms = cuda_ms(lambda: _cell_masks_plain(splats, nty, cwb), 2)
         g_bound = G_BYTES * splats.mean2d.shape[0] / PEAK_BYTES * 1e3
+        view0 = cams.view(0)
+        h_ms = cuda_ms(lambda: preprocess(params, view0, active_sh_degree=3,
+                                          alive=params.alive), 20)
+        h_plain_ms = cuda_ms(lambda: preprocess_plain(
+            params, view0, active_sh_degree=3, alive=params.alive), 3)
+        h_bound = H_BYTES * params.capacity / PEAK_BYTES * 1e3
         n_walked = int(walked.long().sum())
         ra = a_report(tag, f"({VIEWS}-view stack)", rec, st, cn, ntx, nty,
                       walked, stage["kernel A"])
@@ -1374,6 +1429,10 @@ def serve_phase(dev, n_gauss: int, height: int, width: int,
               f"rows): {stage['cell masks']:.4f} ms vs bound {g_bound:.5f} ms"
               f" (bytes: P x {G_BYTES} B at 3.35 TB/s); plain "
               f"{g_plain_ms:.3f} ms", flush=True)
+        print(f"{tag} kernel H (one view, {params.capacity} rows): "
+              f"{h_ms:.4f} ms vs bound {h_bound:.5f} ms (bytes: P x "
+              f"{H_BYTES} B at 3.35 TB/s); plain {h_plain_ms:.3f} ms",
+              flush=True)
 
         b_ms = cuda_ms(lambda: blur_same(planes, taps), 20)
         b_plain_ms = cuda_ms(lambda: blur_plain(planes, taps), 5)
@@ -1425,7 +1484,14 @@ def serve_phase(dev, n_gauss: int, height: int, width: int,
                     "fuses; no Pallas kernel)",
         "launches": 0, "launches_by_path": {}, "max_abs_err": 0.0,
         "ms": stage["cell masks"], "plain_ms": g_plain_ms,
-        "bound_ms": g_bound, "bound_by": "bytes", "library_ms": None}
+        "bound_ms": g_bound, "bound_by": "bytes", "library_ms": None}, {
+        "name": "preprocess", "route": "cuda",
+        "source": "gslm_tpu_torch/csrc/preprocess.cu",
+        "replaces": "gslm_tpu/ops/projection.py:111 and ops/sh.py (array "
+                    "code XLA fuses; no Pallas kernel)",
+        "launches": 0, "launches_by_path": {}, "max_abs_err": 0.0,
+        "ms": h_ms, "plain_ms": h_plain_ms, "bound_ms": h_bound,
+        "bound_by": "bytes", "library_ms": None}
 
 
 def train_phase(dev, n_gauss: int, height: int, width: int, tag: str,
@@ -1438,6 +1504,7 @@ def train_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     from gslm_tpu_torch.models.gaussians import PARAM_GROUPS, GaussianAux
     from gslm_tpu_torch.ops import rasterize_cuda as rc
     from gslm_tpu_torch.ops.blur_cuda import blur, blur_plain, blur_same
+    from gslm_tpu_torch.ops.projection import preprocess_cuda
     from gslm_tpu_torch.ops.rasterize_tiled import RasterConfig, _cell_masks
     from gslm_tpu_torch.ops.ssim import gaussian_taps
     from gslm_tpu_torch.optim import (adam_step, group_learning_rates,
@@ -1483,16 +1550,18 @@ def train_phase(dev, n_gauss: int, height: int, width: int, tag: str,
         blur_same.vjp_launches = 0
         real_bwd.launches = 0
         _cell_masks.launches = 0
+        preprocess_cuda.launches = 0
         params, aux, state, m = train_step(params, aux, state, cam, bg, 100,
                                            1.0, 0.0, **ts_kw)
         torch.cuda.synchronize()
         launches = {"A": rc.composite_tiles.launches, "B": blur_same.launches,
-                    "C": real_bwd.launches, "G": _cell_masks.launches}
+                    "C": real_bwd.launches, "G": _cell_masks.launches,
+                    "H": preprocess_cuda.launches}
         b_vjp = blur_same.vjp_launches
     print(f"train_step launches: {launches} (B's VJP {b_vjp})", flush=True)
-    check(launches == {"A": 1, "B": 2, "C": 1, "G": 1} and b_vjp == 1,
+    check(launches == {"A": 1, "B": 2, "C": 1, "G": 1, "H": 0} and b_vjp == 1,
           f"train_step launches {launches}, B's VJP {b_vjp}: expected A "
-          f"once, B twice (one VJP), C once, G once")
+          f"once, B twice (one VJP), C once, G once, H never")
     G_LAUNCHES["train_step"] = launches["G"]
     check(len(captured) == 1, "kernel C's inputs not captured once")
     losses = [float(m["loss"])]
@@ -1693,6 +1762,7 @@ def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     from gslm_tpu_torch.models.gaussians import PARAM_GROUPS
     from gslm_tpu_torch.ops import rasterize_cuda as rc
     from gslm_tpu_torch.ops.blur_cuda import blur_same
+    from gslm_tpu_torch.ops.projection import preprocess_cuda
     from gslm_tpu_torch.ops.rasterize_tiled import (RasterConfig, _cdiv,
                                                     _cell_masks)
     from gslm_tpu_torch.renderer import stack_views
@@ -1733,6 +1803,7 @@ def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     rc.composite_tiles_bwd.launches = 0
     rc.composite_tiles_jvp.launches = 0
     _cell_masks.launches = 0
+    preprocess_cuda.launches = 0
     guards = (rc.composite_tiles_bwd_unmasked, rc.composite_tiles_jvp_unmasked)
     for f in guards:
         f.launches = 0
@@ -1743,11 +1814,12 @@ def lm_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     launches = {"A": rc.composite_tiles.launches, "B": blur_same.launches,
                 "C": rc.composite_tiles_bwd.launches,
                 "E": rc.composite_tiles_jvp.launches,
-                "G": _cell_masks.launches}
+                "G": _cell_masks.launches, "H": preprocess_cuda.launches}
     print(f"lm_outer_step launches: {launches}", flush=True)
     check(launches == LM_LAUNCHES,
           f"lm_outer_step launches {launches}: expected {LM_LAUNCHES}")
     G_LAUNCHES["lm_outer_step"] = launches["G"]
+    H_LAUNCHES["lm_outer_step"] = launches["H"]
     check(all(f.launches == 0 for f in guards),
           "lm_outer_step launched a guard kernel")
     norms = {g: float(v) for g, v in info["step_norms"].items()}
@@ -2054,9 +2126,11 @@ def bucket_phase(dev, n_gauss: int, height: int, width: int, tag: str,
         torch.cuda.synchronize()
         render_launches = got = launches()
         print(f"m1 render launches: {got}", flush=True)
-        check(got == {"A": 1, "B": 0, "C": 0, "D": 0, "E": 0, "G": 1},
-              f"m1 render launches {got}: expected A and G once")
+        check(got == {"A": 1, "B": 0, "C": 0, "D": 0, "E": 0, "G": 1,
+                      "H": 1},
+              f"m1 render launches {got}: expected A, G and H once")
         G_LAUNCHES["render_m1_bucket4"] = got["G"]
+        H_LAUNCHES["render_m1_bucket4"] = got["H"]
         sp = stack_views(params, cams, config=cfg4)[0]
         tr = rc.tile_records(sp, ntx, nty, cfg4)
         check(tuple(int(t) for t in reversed(tr.totals)) == counts4
@@ -2128,9 +2202,9 @@ def bucket_phase(dev, n_gauss: int, height: int, width: int, tag: str,
         torch.cuda.synchronize()
         got = launches()
     print(f"m1 train_step launches: {got}", flush=True)
-    check(got == {"A": 1, "B": 2, "C": 0, "D": 1, "E": 0, "G": 1},
+    check(got == {"A": 1, "B": 2, "C": 0, "D": 1, "E": 0, "G": 1, "H": 0},
           f"m1 train_step launches {got}: expected A once, B twice, D once, "
-          f"G once")
+          f"G once, H never")
     G_LAUNCHES["train_m1_bucket4"] = got["G"]
     step_launches = got
     check(len(captured) == 1, "kernel D's inputs not captured once")
@@ -2434,16 +2508,16 @@ def pcd_calls():
 
 @contextlib.contextmanager
 def probe_calls():
-    """Counts ``train_lm``'s ``overflow_probe`` calls inside the block
-    that cull on the card, each one kernel G launch: a list that grows by
-    one per call."""
+    """Records ``train_lm``'s ``overflow_probe`` calls on the card inside
+    the block: a list that grows by one ``(G, H)`` per call, its kernel G
+    launches (1 with culling, else 0) and kernel H's (one per view)."""
     from gslm_tpu_torch import train_lm as TL
     real = TL.overflow_probe
     got = []
 
     def counted(params, cameras, *, config, **k):
-        if config.cull and params.xyz.device.type == "cuda":
-            got.append(1)
+        if params.xyz.device.type == "cuda":
+            got.append((int(config.cull), cameras.batch_size))
         return real(params, cameras, config=config, **k)
 
     TL.overflow_probe = counted
@@ -2451,6 +2525,11 @@ def probe_calls():
         yield got
     finally:
         TL.overflow_probe = real
+
+
+def probe_launches(probes: list) -> dict:
+    """Kernels G's and H's launches by ``probe_calls``' records."""
+    return {"G": sum(g for g, _ in probes), "H": sum(h for _, h in probes)}
 
 
 def knn_checks(dev, tag: str, scene_pts: np.ndarray, n_gauss: int) -> dict:
@@ -2962,13 +3041,15 @@ def scene_phase(dev, n_gauss: int, height: int, width: int, tag: str,
             densify(it)
     torch.cuda.synchronize()
     got = launches()
-    per_step = {"A": 1, "B": 2, "C": 1, "D": 0, "E": 0, "G": 1}
+    per_step = {"A": 1, "B": 2, "C": 1, "D": 0, "E": 0, "G": 1, "H": 0}
     want = {k: SCENE_STEPS * v for k, v in per_step.items()}
     want["G"] += len(DENSIFY_AT)     # each event's overflow_probe
+    want["H"] += len(DENSIFY_AT) * SCENE_VIEWS     # ... one per view
     print(f"scene train_step launches over {SCENE_STEPS} steps: {got}",
           flush=True)
     check(got == want, f"scene train_step launches {got}, expected "
-          f"{want} (per step A 1, B 2, C 1, G 1; G once per event's probe)")
+          f"{want} (per step A 1, B 2, C 1, G 1; G once and H once a view "
+          f"per event's probe)")
     counted = dict(got)
     # the launches that hold the kernels to plain come after the count
     errs = [step_vs_plain(f"scene step {CHECKED_STEPS[0]}",
@@ -3062,6 +3143,7 @@ def scene_phase(dev, n_gauss: int, height: int, width: int, tag: str,
         if key in errs[0]:
             entry["max_abs_err_scene_densify"] = max(e[key] for e in errs)
     G_LAUNCHES["scene_densify"] = counted["G"]
+    H_LAUNCHES["scene_densify"] = counted["H"]
     check(mean_sq_dist_3nn.launches == 0, f"kernel F launched "
           f"{mean_sq_dist_3nn.launches} times by phase 9's steps, density "
           f"events, checkpoint and Scene reload")
@@ -3390,10 +3472,10 @@ def cli_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     out = os.path.join(root, "cli")
     out_sgd = os.path.join(root, "cli_sgd")
     prof = os.path.join(root, "cli_profile")
-    adam = {"A": 1, "B": 2, "C": 1, "D": 0, "E": 0, "G": 1}
+    adam = {"A": 1, "B": 2, "C": 1, "D": 0, "E": 0, "G": 1, "H": 0}
     # the entry points run on the card unless told otherwise
     plat = [] if dev.type == "cuda" else ["--platform", dev.type]
-    totals = {k: 0 for k in "ABCDEG"}
+    totals = {k: 0 for k in "ABCDEGH"}
     errs = {}
 
     # ---- 1. train.main: 300 Adam iterations, the viewer on ---------------
@@ -3495,6 +3577,10 @@ def cli_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     extras = 0 if "Tensorboard not available" in text else len(CLI_TESTS)
     for k in "AG":        # each render runs the front end once
         want[k] += len(lp.evals) + len(stash) + extras
+    # H once per view of each no-grad render: evaluate's batches, the
+    # viewer's frames, the report's first 5 train views
+    want["H"] += (sum(n for _, n, _, _ in lp.evals) + len(stash)
+                  + extras * min(5, len(scene.get_train_cameras())))
     check(loop_launches == want, f"train.main launches {loop_launches}, "
           f"expected {want}")
     totals = {k: totals[k] + loop_launches[k] for k in totals}
@@ -3648,7 +3734,7 @@ def cli_phase(dev, n_gauss: int, height: int, width: int, tag: str,
                          float(res[1]["best_val_loss"]),
                          torch.equal(res[0].xyz, xyz),
                          (e_in[0], c_in[0]) if first else None,
-                         len(probes) - n_probe))
+                         probe_launches(probes[n_probe:])))
         return res
 
     TL.lm_phase = lm_phase
@@ -3672,29 +3758,32 @@ def cli_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     text = tee.text()
     grow = [int(x) for x in re.findall(r"LM window exceeds record capacity: "
                                        r"growing to dup_capacity=(\d+)", text)]
-    # G: one per front end, 71 renders and 6 J·v, and one per probe
-    lm_want = {"A": 71, "B": 0, "C": 4, "D": 0, "E": 6, "G": 77}
+    # G: one per front end, 71 renders and 6 J·v, and one per probe; H:
+    # one per view of the 70 no-grad validation renders and of each probe
+    lm_want = {"A": 71, "B": 0, "C": 4, "D": 0, "E": 6, "G": 77, "H": 350}
     print(f"{tag} train_lm.main: {CLI_LM_ITERS} LM iterations in {lm_s:.1f} s"
           f"; probe growth lines at dup_capacity {grow}"
           f"{' and the persists WARNING' if 'WARNING' in text else ''}; per "
           f"iteration: "
-          + "; ".join(f"launches {d} ({n_p} probes), {ms:.1f} ms, best val "
-                      f"loss {v:.6f}, xyz {'unchanged' if same else 'MOVED'}"
+          + "; ".join(f"launches {d} (its probes' {n_p}), {ms:.1f} ms, best "
+                      f"val loss {v:.6f}, xyz "
+                      f"{'unchanged' if same else 'MOVED'}"
                       for d, ms, v, same, _, n_p in lm_calls)
           + f"; peak device memory {peak / 2**30:.2f} GiB", flush=True)
     check(len(lm_calls) == CLI_LM_ITERS, f"{len(lm_calls)} LM iterations")
-    check(all(d == lm_want | {"G": lm_want["G"] + n_p}
+    check(all(d == lm_want | {k: lm_want[k] + n_p[k] for k in "GH"}
               for d, *_, n_p in lm_calls),
           f"LM iteration launches, expected {lm_want} each, G one more per "
-          f"probe")
+          f"probe and H one more per probed view")
     check(all(math.isfinite(v) and same for _, _, v, same, *_ in lm_calls),
           "an LM iteration's best validation loss is not finite, or xyz "
           "moved under mask_xyz")
     check(grow and all(b == 2 * a for a, b in zip([2_097_152] + grow, grow)),
           f"LM probe growth {grow}: expected doublings from 2097152")
+    n_p = probe_launches(probes)
     check(lm_total == {k: CLI_LM_ITERS * v for k, v in lm_want.items()}
-          | {"G": CLI_LM_ITERS * lm_want["G"] + len(probes)},
-          f"train_lm.main launches {lm_total}, {len(probes)} probes")
+          | {k: CLI_LM_ITERS * lm_want[k] + n_p[k] for k in "GH"},
+          f"train_lm.main launches {lm_total}, {len(probes)} probes ({n_p})")
     totals = {k: totals[k] + lm_total[k] for k in totals}
     e_args, c_args = lm_calls[0][4]
     rec, tng, st, cn, ntx, nty = e_args[:6]
@@ -3761,8 +3850,9 @@ def cli_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     n_chunks = sum(-(-len(m) // 4) for m in (model.get_train_cameras(),
                                              model.get_test_cameras()))
     check(r_launch == {"A": n_chunks, "B": 0, "C": 0, "D": 0, "E": 0,
-                       "G": n_chunks},
-          f"render_sets launches {r_launch}, expected A and G {n_chunks}")
+                       "G": n_chunks, "H": 4 * n_chunks},
+          f"render_sets launches {r_launch}, expected A and G {n_chunks}, H "
+          f"once per view of the chunks of 4")
     for d in render_dirs:
         for sub in ("renders", "gt"):
             n = len(os.listdir(os.path.join(out, d, sub)))
@@ -3777,7 +3867,8 @@ def cli_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     metrics_s = time.perf_counter() - t0
     m_launch = launches()
     n_pairs = len(model.get_test_cameras())
-    check(m_launch == {"A": 0, "B": n_pairs, "C": 0, "D": 0, "E": 0, "G": 0},
+    check(m_launch == {"A": 0, "B": n_pairs, "C": 0, "D": 0, "E": 0, "G": 0,
+                       "H": 0},
           f"metrics launches {m_launch}, expected B {n_pairs}")
     for k in totals:
         totals[k] += r_launch[k] + m_launch[k]
@@ -3853,6 +3944,7 @@ def cli_phase(dev, n_gauss: int, height: int, width: int, tag: str,
         entry["launches_by_path"]["train_cli"] = totals[key]
         entry["launches"] += totals[key]
     G_LAUNCHES["train_cli"] = totals["G"]
+    H_LAUNCHES["train_cli"] = totals["H"]
     kernels[0]["max_abs_err_train_cli"] = max(errs["adam"]["A"],
                                               errs["sgd_A"])
     kernels[1]["max_abs_err_train_cli"] = errs["adam"]["B"]
@@ -3987,7 +4079,7 @@ def depth_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     os.makedirs(depths)
     out = os.path.join(root, "depth")
     out_sgd = os.path.join(root, "depth_sgd")
-    adam = {"A": 1, "B": 2, "C": 1, "D": 0, "E": 0, "G": 1}
+    adam = {"A": 1, "B": 2, "C": 1, "D": 0, "E": 0, "G": 1, "H": 0}
 
     # the view that comes out unreliable: one the SGD windows take, in the
     # train order the loop's Scene makes (random.Random(0) over the
@@ -4114,6 +4206,9 @@ def depth_phase(dev, n_gauss: int, height: int, width: int, tag: str,
     extras = 0 if "Tensorboard not available" in text else 1
     for k in "AG":        # each render runs the front end once
         want[k] += len(lp.evals) + extras
+    # H once per view of evaluate's batches and the report's 5 train views
+    want["H"] += (sum(n for _, n, _, _ in lp.evals)
+                  + extras * min(5, len(names)))
     check(loop_launches == want, f"train.main -d launches {loop_launches}, "
           f"expected {want}")
     check(len(flags) == n_att == loop_launches["C"] and all(flags),
@@ -4214,6 +4309,7 @@ def depth_phase(dev, n_gauss: int, height: int, width: int, tag: str,
         entry["launches_by_path"]["scene_depth"] = totals[key]
         entry["launches"] += totals[key]
     G_LAUNCHES["scene_depth"] = totals["G"]
+    H_LAUNCHES["scene_depth"] = totals["H"]
     kernels[2]["max_abs_err_scene_depth"] = c_err
     kernels[2]["depth_grad_launches"] = loop_launches["C"] + sgd_total["C"]
     kernels[2]["ms_depth_grad"] = c_true
@@ -4317,11 +4413,13 @@ def lpips_parity_phase(dev, tag: str, kernels: list[dict], model: str,
         n_pairs = len(os.listdir(os.path.join(model, "test", method,
                                               "renders")))
         check(m_launch == {"A": 0, "B": n_pairs, "C": 0, "D": 0, "E": 0,
-                           "G": 0},
+                           "G": 0, "H": 0},
               f"metrics launches {m_launch}, expected B {n_pairs}")
         check(r_launch["A"] >= 1 and r_launch["B"] == r_launch["C"] == 0
-              and r_launch["G"] == r_launch["A"],
-              f"render_sets launches {r_launch}")
+              and r_launch["G"] == r_launch["A"]
+              and r_launch["H"] == 4 * r_launch["A"],
+              f"render_sets launches {r_launch}: expected G once and H 4 "
+              f"times (a chunk's views) per A")
         pairs = lpips_pairs(f"render_sets' {method}",
                             os.path.join(model, "test", method), dev)
 
@@ -4372,6 +4470,7 @@ def lpips_parity_phase(dev, tag: str, kernels: list[dict], model: str,
         entry["launches_by_path"]["lpips_metrics"] = n
         entry["launches"] += n
     G_LAUNCHES["lpips_metrics"] = r_launch["G"]
+    H_LAUNCHES["lpips_metrics"] = r_launch["H"]
 
     # ---- the parity matrix at full size ------------------------------------
     zero_launches()
@@ -4692,7 +4791,7 @@ def dp_rank_body(rank: int, world: int, dev, src: str, root: str,
               active_sh_degree=3, use_exp=False, sparse_adam=False,
               update_stats=True)
     start = (params, GaussianAux.zeros(n_gauss, dev), init_adam(params))
-    totals = {k: 0 for k in "ABCDEG"}
+    totals = {k: 0 for k in "ABCDEGH"}
 
     def count(before):
         after = launches()
@@ -4920,8 +5019,10 @@ def dp_phase(dev, n_gauss: int, height: int, width: int, tag: str,
             check(r["totals"][k] > 0, f"rank {r['rank']} never launched "
                                       f"kernel {k} on the data-parallel path")
         adam, lm = r["adam_launches"], r["lm_launches"]
+        # H: the LM step's no-grad validation renders, 5 views a chunk
         check(adam["A"] == 1 and adam["C"] == 1 and adam["G"] == 1
-              and lm["E"] > 0 and lm["G"] == lm["A"] + lm["E"],
+              and adam["H"] == 0 and lm["E"] > 0
+              and lm["G"] == lm["A"] + lm["E"] and lm["H"] == 5 * (lm["A"] - 1),
               f"rank {r['rank']} data-parallel launches: Adam {adam}, LM "
               f"{lm}")
     for entry, k in zip(kernels, "ABCDE"):
@@ -4931,6 +5032,7 @@ def dp_phase(dev, n_gauss: int, height: int, width: int, tag: str,
             entry["launches"] += n
     for r in ranks:
         G_LAUNCHES[f"data_parallel_rank{r['rank']}"] = r["totals"]["G"]
+        H_LAUNCHES[f"data_parallel_rank{r['rank']}"] = r["totals"]["H"]
     print(f"{tag} phase 13 wall {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
@@ -4946,9 +5048,10 @@ MP_VAL_VIEWS = 5        # train_lm.main --mesh_model 2: --num_val_views
 MP_TIMEOUT = 900.0      # join timeout of the ranks (s)
 # per rank: the Adam step (band render, SSIM blur forward and VJP, band
 # backward); the LM step (1 linearization + 7 one-pass val renders, Jᵀ·u
-# and J·v as in lm_outer_step); G once per band render and J·v
-MP_ADAM_LAUNCHES = {"A": 1, "B": 2, "C": 1, "D": 0, "E": 0, "G": 1}
-MP_LM_LAUNCHES = {"A": 8, "B": 0, "C": 4, "D": 0, "E": 6, "G": 14}
+# and J·v as in lm_outer_step); G once per band render and J·v; H once per
+# view of the no-grad val renders, on the rank's own rows (7 x 50 views)
+MP_ADAM_LAUNCHES = {"A": 1, "B": 2, "C": 1, "D": 0, "E": 0, "G": 1, "H": 0}
+MP_LM_LAUNCHES = {"A": 8, "B": 0, "C": 4, "D": 0, "E": 6, "G": 14, "H": 350}
 
 
 def mp_collectives(dev, mesh) -> dict:
@@ -5141,7 +5244,7 @@ def mp_rank_body(rank: int, world: int, dev, src: str, root: str,
     out["gloo_cuda"] = mp_collectives(dev, mesh)
     check(all(v is True for v in out["gloo_cuda"].values()),
           f"gloo on {dev.type} tensors: {out['gloo_cuda']}")
-    totals = {k: 0 for k in "ABCDEG"}
+    totals = {k: 0 for k in "ABCDEGH"}
 
     def sync():
         sync_device(dev)
@@ -5230,8 +5333,10 @@ def mp_rank_body(rank: int, world: int, dev, src: str, root: str,
             check(out["render"][name]["pad_zero"], f"rank {rank}'s loss band "
                   f"has nonzero rows past H ({name})")
             check(out["render"][name]["overflow"] == 0, f"{name} overflows")
-            check(got == {"A": 1, "B": 0, "C": 0, "D": 0, "E": 0, "G": 1},
-                  f"band render launches {got}: expected A and G once")
+            check(got == {"A": 1, "B": 0, "C": 0, "D": 0, "E": 0, "G": 1,
+                          "H": cams.batch_size},
+                  f"band render launches {got}: expected A and G once, H "
+                  f"once per view")
             del img, invd, info
         del single
         # the exchange's and the reduce-scatter's times at this view
@@ -5578,6 +5683,7 @@ def mp_phase(dev, n_gauss: int, m1_n: int, height: int, width: int,
             entry["launches"] += n
     for r in ranks:
         G_LAUNCHES[f"model_parallel_rank{r['rank']}"] = r["totals"]["G"]
+        H_LAUNCHES[f"model_parallel_rank{r['rank']}"] = r["totals"]["H"]
     print(f"{tag} phase 14 wall {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
@@ -5669,6 +5775,9 @@ def quality_body(dev, tag: str) -> dict:
         check(got == w, f"15 {s}: launches of {ph} {got}, expected {w}")
     check(totals["G"] == totals["A"] + totals["E"], f"15 {s}: kernel G "
           f"launched {totals['G']} times, expected once per render and J·v")
+    # H: the no-grad renders' views (targets, PSNRs, the LM's validation)
+    check(totals["H"] > 0, f"15 {s}: kernel H never launched by the no-grad "
+          f"renders")
     check(d_lm > 0.1, f"15 {s}: LM gain {d_lm:.3f} dB")
     check(d_lm > d_adam - 0.05, f"15 {s}: LM gain {d_lm:.3f} dB against "
           f"Adam's {d_adam:.3f}")
@@ -5761,6 +5870,7 @@ def quality_finish(started, tag: str, kernels: list[dict]) -> None:
         if k in res["errs"]:
             entry["max_abs_err_quality"] = res["errs"][k]
     G_LAUNCHES["quality_small_64"] = res["totals"]["G"]
+    H_LAUNCHES["quality_small_64"] = res["totals"]["H"]
     print(f"{tag} phase 15 wall {time.perf_counter() - t_phase:.1f} s, "
           f"started before phase 11", flush=True)
 

@@ -29,7 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 # C signatures: every pointer and the stream are void*, counts are int
-_VP, _I = ctypes.c_void_p, ctypes.c_int
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "composite_fwd": {"composite_fwd": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP,
                                         _VP, _VP],
@@ -60,6 +60,9 @@ SIGNATURES = {
     "cell_masks": {"cell_masks": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
                                   _I, _VP, _VP, _VP, _VP, _VP, _VP],
                    "cell_masks_attrs": [_VP]},
+    "preprocess": {"preprocess": [_VP] * 6 + [_I] + [_VP] * 8
+                   + [_I] * 5 + [_F] + [_VP] * 12,
+                   "preprocess_attrs": [_VP]},
 }
 
 

@@ -14,6 +14,10 @@ One vectorized pass over all P Gaussians of one camera. Semantics:
   - SH colour clamped at 0
 The arithmetic is written term by term in the JAX package's order, so the
 float fields agree to rounding and the integer rects exactly.
+
+On CUDA tensors that need no autograd (``needs_autograd``) the whole pass
+is kernel H (csrc/preprocess.cu), one launch, bit for bit the plain
+graph's; every other call runs the plain graph below.
 """
 
 from __future__ import annotations
@@ -21,10 +25,12 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
+from gslm_tpu_torch import _build
 from gslm_tpu_torch.models.cameras import Camera
 from gslm_tpu_torch.models.gaussians import GaussianParams
-from gslm_tpu_torch.ops.sh import eval_sh
+from gslm_tpu_torch.ops.sh import MAX_SH_DEGREE, eval_sh, num_sh_coeffs
 from gslm_tpu_torch.struct import Struct
 from gslm_tpu_torch.utils.general import quat_normalize
 
@@ -124,10 +130,33 @@ def preprocess(params: GaussianParams, camera: Camera, *,
     densification statistics (its cotangent is dL/dmean2d in the CUDA
     reference's convention).
 
-    Differentiable in every parameter group. The rows of culled, dead and
-    off-screen Gaussians are sanitized below without an infinite
-    derivative on either side of a ``where``, so their gradients are finite
-    and exactly zero, as in the JAX package."""
+    Differentiable in every parameter group (``preprocess_plain``). CUDA
+    tensors that need no autograd (``needs_autograd``) take kernel H
+    (``preprocess_cuda``), bit for bit the same fields; the other CUDA calls
+    are counted in ``preprocess_plain_cuda_calls``."""
+    global preprocess_plain_cuda_calls
+    kw = dict(active_sh_degree=active_sh_degree, antialiasing=antialiasing,
+              scaling_modifier=scaling_modifier, alive=alive,
+              mean2d_offset=mean2d_offset, color_override=color_override)
+    if params.xyz.device.type == "cuda":
+        if not needs_autograd(_inputs(params, camera, mean2d_offset,
+                                      color_override)):
+            return preprocess_cuda(params, camera, **kw)
+        preprocess_plain_cuda_calls += 1
+    return preprocess_plain(params, camera, **kw)
+
+
+def preprocess_plain(params: GaussianParams, camera: Camera, *,
+                     active_sh_degree: int, antialiasing: bool = False,
+                     scaling_modifier: float = 1.0,
+                     alive: torch.Tensor | None = None,
+                     mean2d_offset: torch.Tensor | None = None,
+                     color_override: torch.Tensor | None = None) -> Splats2D:
+    """``preprocess`` as a graph of PyTorch ops, differentiable in every
+    parameter group. The rows of culled, dead and off-screen Gaussians are
+    sanitized below without an infinite derivative on either side of a
+    ``where``, so their gradients are finite and exactly zero, as in the
+    JAX package."""
     xyz = params.xyz
     W, H = camera.width, camera.height
     fx = W / (2.0 * camera.tanfovx)
@@ -251,3 +280,120 @@ def preprocess(params: GaussianParams, camera: Camera, *,
                     rect_min=torch.stack([tx0, ty0], -1).to(torch.int32),
                     rect_max=torch.stack([tx1, ty1], -1).to(torch.int32),
                     tile_count=tile_count.to(torch.int32), visible=visible)
+
+
+# CUDA calls of ``preprocess`` that ran the plain graph (they needed
+# autograd) in this process; ``preprocess_cuda.launches`` counts the rest
+preprocess_plain_cuda_calls = 0
+
+
+def _inputs(params, camera, mean2d_offset=None, color_override=None):
+    """The float tensors ``preprocess`` reads, None where not given."""
+    return (params.xyz, params.features_dc, params.features_rest,
+            params.scaling, params.rotation, params.opacity,
+            camera.world_view, camera.full_proj, camera.campos,
+            camera.tanfovx, camera.tanfovy, mean2d_offset, color_override)
+
+
+def needs_autograd(tensors) -> bool:
+    """Whether a call on ``tensors`` (None entries skipped) needs the plain
+    graph's autograd: grad mode is on and one of them requires grad, or one
+    of them carries a forward-AD tangent at the current level. Kernel H
+    computes values only, so it takes exactly the calls for which this is
+    False."""
+    ts = [t for t in tensors if t is not None]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        return True
+    return any(fwAD.unpack_dual(t).tangent is not None for t in ts)
+
+
+def preprocess_cuda(params: GaussianParams, camera: Camera, *,
+                    active_sh_degree: int, antialiasing: bool = False,
+                    scaling_modifier: float = 1.0,
+                    alive: torch.Tensor | None = None,
+                    mean2d_offset: torch.Tensor | None = None,
+                    color_override: torch.Tensor | None = None) -> Splats2D:
+    """``preprocess`` of CUDA tensors as kernel H (csrc/preprocess.cu): one
+    launch, eleven fresh fields bit for bit the plain graph's, no autograd
+    (the caller checks ``needs_autograd``). The SH colour is read from
+    ``features_dc`` and ``features_rest`` as they are, with no
+    concatenation. Raises ``TypeError`` on a dtype, device or shape the
+    kernel cannot take, ``ValueError`` on an SH degree the coefficients do
+    not hold."""
+    xyz = params.xyz
+    dev = xyz.device
+    P = xyz.shape[0]
+    deg = int(active_sh_degree)
+    rest = params.features_rest
+    if not 0 <= deg <= MAX_SH_DEGREE or num_sh_coeffs(deg) > 1 + rest.shape[1]:
+        raise ValueError(f"SH degree {deg} needs {num_sh_coeffs(deg)} "
+                         f"coefficients; the parameters hold "
+                         f"{1 + rest.shape[1]} (degree at most "
+                         f"{MAX_SH_DEGREE})")
+    want = {"xyz": (xyz, (P, 3)), "scaling": (params.scaling, (P, 3)),
+            "rotation": (params.rotation, (P, 4)),
+            "opacity": (params.opacity, (P, 1)),
+            "features_dc": (params.features_dc, (P, 1, 3)),
+            "features_rest": (rest, (P, rest.shape[1], 3)),
+            "world_view": (camera.world_view, (4, 4)),
+            "full_proj": (camera.full_proj, (4, 4)),
+            "campos": (camera.campos, (3,)),
+            "tanfovx": (camera.tanfovx, ()), "tanfovy": (camera.tanfovy, ()),
+            "mean2d_offset": (mean2d_offset, (P, 2)),
+            "color_override": (color_override, (P, 3))}
+    if alive is not None and (alive.dtype != torch.bool or alive.device != dev
+                              or tuple(alive.shape) != (P,)):
+        raise TypeError(f"preprocess_cuda needs alive as a bool (P,) tensor "
+                        f"on {dev}, got {alive.dtype} {tuple(alive.shape)} "
+                        f"on {alive.device}")
+    ins = {}
+    for name, (t, shape) in want.items():
+        if t is None:
+            continue
+        if (not isinstance(t, torch.Tensor) or t.dtype != torch.float32
+                or t.device != dev or tuple(t.shape) != shape):
+            got = ((t.dtype, tuple(t.shape), t.device)
+                   if isinstance(t, torch.Tensor) else type(t).__name__)
+            raise TypeError(f"preprocess_cuda needs {name} as a float32 "
+                            f"{shape} tensor on {dev}, got {got}")
+        # contiguous: a no-op on the main path; held until the launch
+        ins[name] = t.contiguous()
+    if rest.shape[1] > num_sh_coeffs(MAX_SH_DEGREE) - 1:
+        raise TypeError(f"preprocess_cuda takes at most "
+                        f"{num_sh_coeffs(MAX_SH_DEGREE) - 1} rows of "
+                        f"features_rest, got {rest.shape[1]}")
+    if alive is not None:
+        alive = alive.contiguous()
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    # eleven allocations, freed one by one as the plain graph's are
+    out = Splats2D(mean2d=empty(P, 2), conic=empty(P, 3), color=empty(P, 3),
+                   opacity=empty(P), depth=empty(P), invdepth=empty(P),
+                   radius=empty(P, dtype=torch.int32),
+                   rect_min=empty(P, 2, dtype=torch.int32),
+                   rect_max=empty(P, 2, dtype=torch.int32),
+                   tile_count=empty(P, dtype=torch.int32),
+                   visible=empty(P, dtype=torch.bool))
+    if P:
+        def ptr(name):
+            return ins[name].data_ptr() if name in ins else None
+
+        rc = _build.load("preprocess").preprocess(
+            ptr("xyz"), ptr("scaling"), ptr("rotation"), ptr("opacity"),
+            ptr("features_dc"), ptr("features_rest"), rest.shape[1],
+            None if alive is None else alive.data_ptr(),
+            ptr("color_override"), ptr("mean2d_offset"), ptr("world_view"),
+            ptr("full_proj"), ptr("campos"), ptr("tanfovx"), ptr("tanfovy"),
+            P, int(camera.width), int(camera.height), deg, int(antialiasing),
+            float(scaling_modifier),
+            *(getattr(out, f.name).data_ptr()
+              for f in dataclasses.fields(Splats2D)),
+            torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(rc, "preprocess")
+        preprocess_cuda.launches += 1
+    return out
+
+
+preprocess_cuda.launches = 0   # kernel H launches in this process

@@ -59,7 +59,18 @@ units, opacity under 1/255 and at the 1e-12 clamp, b² near a·c, a and c at
 the clamp, tile_count 0), fields that are strided views of packed rows,
 forward-AD duals, a 1,048,576-Gaussian 1080p
 view; ``duplicate_sort_ranges`` with it equal to its run on the plain
-masks, one launch a call."""
+masks, one launch a call. Kernel H (the preprocess, no grad) equal to
+``preprocess_plain`` bit for bit on every field of ``Splats2D``: three
+1237x822 views of the full-size ``mip360-3m`` scene law (two on the
+training ring, one off it), SH degrees 0-4 with and without
+antialiasing, ``scaling_modifier`` 0.5 and 1.7, tests/preprocess_cases.py's
+edge rows, ``alive``, ``color_override`` and ``mean2d_offset``, P = 0 (no
+launch); a float64 group, a CPU camera, a float mask and a missing SH
+degree raise; grad mode with leaves that require grad and forward-AD
+duals run the plain graph (no launch, the plain calls counted); one launch
+per ``render`` and ``batch_render`` view, none in ``train_step``."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -68,11 +79,14 @@ import torch.autograd.forward_ad as fwAD
 
 from gslm_tpu_torch.config import LMParams, OptimizationParams
 from gslm_tpu_torch.densify import densify_and_prune
+from gslm_tpu_torch.models.cameras import Camera
 from gslm_tpu_torch.models.gaussians import (PARAM_GROUPS, GaussianAux,
-                                             params_from_numpy)
+                                             GaussianParams,
+                                             params_from_numpy, with_groups)
 from gslm_tpu_torch.ops.blur_cuda import blur, blur_plain, blur_same
-from gslm_tpu_torch.ops import rasterize_tiled
-from gslm_tpu_torch.ops.projection import Splats2D, preprocess
+from gslm_tpu_torch.ops import projection, rasterize_tiled
+from gslm_tpu_torch.ops.projection import (Splats2D, preprocess,
+                                           preprocess_cuda, preprocess_plain)
 from gslm_tpu_torch.ops.rasterize_cuda import (
     BucketSegments, bucket_of_tile, composite_tiles,
     composite_tiles_bucket_bwd, composite_tiles_bucket_bwd_plain,
@@ -92,6 +106,7 @@ from knn_cases import hard_clouds
 # pytest puts tests/ on sys.path; an installed ``tests`` package can shadow
 # the name ``tests.patch_cases``
 from patch_cases import adversarial_records
+from preprocess_cases import edge_groups, look_at
 
 
 @pytest.fixture
@@ -1104,3 +1119,263 @@ def test_duplicate_sort_ranges_with_kernel_g_equals_plain(cuda, monkeypatch,
         assert torch.equal(g, w)
     assert [int(t) for t in got[4]] == [int(t) for t in want[4]]
     assert int(got[4][0]) < int(got[4][1])          # the cull dropped some
+
+
+def _fields_equal(got: Splats2D, want: Splats2D) -> dict:
+    """Each field of two ``Splats2D``: {name: rows that differ}, float
+    fields compared bit by bit (a NaN is never written: the fields are
+    sanitized), shapes and dtypes equal."""
+    out = {}
+    for f in dataclasses.fields(Splats2D):
+        g, w = getattr(got, f.name), getattr(want, f.name)
+        assert g.shape == w.shape and g.dtype == w.dtype, f.name
+        assert not g.requires_grad, f.name
+        if g.dtype.is_floating_point:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        d = g != w
+        out[f.name] = int((d if d.dim() == 1 else d.flatten(1).any(1)).sum())
+    return out
+
+
+def _kernel_h_equals_plain(params, cam, **kw):
+    """Kernel H against the plain graph, every field bit for bit, one
+    launch through ``preprocess``'s dispatch (no grad)."""
+    n0, p0 = preprocess_cuda.launches, projection.preprocess_plain_cuda_calls
+    with torch.no_grad():
+        got = preprocess(params, cam, **kw)
+        want = preprocess_plain(params, cam, **kw)
+    torch.cuda.synchronize()
+    assert preprocess_cuda.launches == n0 + 1
+    assert projection.preprocess_plain_cuda_calls == p0
+    differ = _fields_equal(got, want)
+    assert not any(differ.values()), differ
+    return got
+
+
+def _h_camera(cuda, radius, azimuth, elevation, height=822, width=1237):
+    wv, fp, cp, tx, ty = look_at(radius, azimuth, elevation, 60.0, height,
+                                 width)
+
+    def t(x):
+        return torch.tensor(x, dtype=torch.float32, device=cuda)
+
+    return Camera(world_view=t(wv), full_proj=t(fp), campos=t(cp),
+                  tanfovx=t(tx), tanfovy=t(ty),
+                  exposure_idx=torch.tensor(0, device=cuda), height=height,
+                  width=width)
+
+
+@pytest.fixture(scope="module")
+def mip360_scene():
+    """The ``mip360-3m`` scene law at full size: 3,103,446 Gaussians of SH
+    degree 3 in a cube of half-side 1.5, log-scales in [-5.5, -3.5],
+    opacity logits in [-1, 2], DC N(0, 0.5), higher SH N(0, 0.05)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    n = 3_103_446
+    gen = torch.Generator(dev).manual_seed(21)
+
+    def uniform(shape, lo, hi):
+        return torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+
+    def normal(shape, std):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    yield GaussianParams(
+        xyz=uniform((n, 3), -1.5, 1.5), features_dc=normal((n, 1, 3), 0.5),
+        features_rest=normal((n, 15, 3), 0.05),
+        scaling=uniform((n, 3), -5.5, -3.5), rotation=normal((n, 4), 1.0),
+        opacity=uniform((n, 1), -1.0, 2.0),
+        exposure=torch.eye(3, 4, device=dev)[None], sh_degree=3)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", [(4.0, 0.0, 0.1), (4.0, 1.3, -0.2),
+                                  (4.5, 2.2, 0.35)],
+                         ids=["ring-a", "ring-b", "orbit-off-ring"])
+def test_preprocess_kernel_on_mip360_views(cuda, mip360_scene, view):
+    """Three 1237x822 views of the full-size scene, two on the training
+    ring (radius 4) and one on the viewer's orbit off it (radius 4.5,
+    elevation 0.35): every field bit for bit."""
+    got = _kernel_h_equals_plain(mip360_scene, _h_camera(cuda, *view),
+                                 active_sh_degree=3, alive=mip360_scene.alive)
+    assert int(got.visible.sum()) > 2_500_000
+    assert int(got.tile_count.sum()) > 5_000_000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("antialiasing", [False, True])
+@pytest.mark.parametrize("deg", [0, 1, 2, 3, 4])
+def test_preprocess_kernel_equals_plain(cuda, deg, antialiasing):
+    """The small scene at every active SH degree of a degree-4 model
+    (a degree-3 model too at degree 3), with and without antialiasing."""
+    cam = ring_camera_batch(1, 120, 200, device=cuda).view(0)
+    for model_deg in sorted({max(deg, 3), 4}):
+        params = random_gaussians(np.random.default_rng(deg), n=4096,
+                                  spread=1.5, sh_degree=model_deg,
+                                  device=cuda)
+        got = _kernel_h_equals_plain(params, cam, active_sh_degree=deg,
+                                     antialiasing=antialiasing)
+        assert 0 < int(got.visible.sum()) < 4096
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scaling_modifier", [0.5, 1.7])
+def test_preprocess_kernel_scaling_modifier(cuda, scaling_modifier):
+    params = random_gaussians(np.random.default_rng(5), n=4096, spread=1.5,
+                              device=cuda)
+    cam = ring_camera_batch(2, 120, 200, device=cuda).view(1)
+    _kernel_h_equals_plain(params, cam, active_sh_degree=3,
+                           scaling_modifier=scaling_modifier,
+                           antialiasing=True)
+
+
+def _edge_params(cuda, cam, sh_degree=3):
+    g = edge_groups(cam.world_view.cpu().numpy(), cam.width, cam.height,
+                    float(cam.tanfovx), float(cam.tanfovy), sh_degree)
+    g["exposure"] = np.eye(3, 4, dtype=np.float32)[None]
+    return params_from_numpy(g, sh_degree, device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("antialiasing", [False, True])
+@pytest.mark.parametrize("deg", [3, 4])
+def test_preprocess_kernel_at_the_edges(cuda, deg, antialiasing):
+    """tests/preprocess_cases.py's rows: behind and about the near plane,
+    off screen and on tile boundaries, opacity at and under 1/255,
+    overflowing (det not > 0) and vanishing covariances, zero, huge and
+    non-finite quaternions, non-finite means, scales, opacities and SH."""
+    cam = ring_camera_batch(1, 120, 200, device=cuda).view(0)
+    params = _edge_params(cuda, cam, deg)
+    tz = (params.xyz @ cam.world_view[2, :3]) + cam.world_view[2, 3]
+    assert bool((tz <= 0.2).any()) and bool((tz > 0.2).any())
+    got = _kernel_h_equals_plain(params, cam, active_sh_degree=deg,
+                                 antialiasing=antialiasing)
+    vis = got.visible
+    assert 0 < int(vis.sum()) < vis.shape[0]
+    assert bool((got.tile_count[~vis] == 0).all())
+    assert bool((got.mean2d[~vis] == -1e4).all())
+
+
+@pytest.mark.cuda
+def test_preprocess_kernel_with_alive_override_and_offset(cuda):
+    """``alive``, ``color_override`` (with non-finite rows) and
+    ``mean2d_offset`` given, alone and together."""
+    cam = ring_camera_batch(1, 120, 200, device=cuda).view(0)
+    params = _edge_params(cuda, cam)
+    n = params.capacity
+    gen = torch.Generator(cuda).manual_seed(7)
+    alive = torch.rand(n, device=cuda, generator=gen) > 0.25
+    offset = torch.randn(n, 2, device=cuda, generator=gen) * 0.01
+    override = torch.rand(n, 3, device=cuda, generator=gen)
+    override[::7, 1] = float("nan")
+    override[::11, 2] = float("inf")
+    kws = [dict(alive=alive), dict(color_override=override),
+           dict(mean2d_offset=offset),
+           dict(alive=alive, color_override=override, mean2d_offset=offset)]
+    for kw in kws:
+        _kernel_h_equals_plain(params, cam, active_sh_degree=3,
+                               antialiasing=True, **kw)
+
+
+@pytest.mark.cuda
+def test_preprocess_kernel_on_no_gaussians(cuda):
+    """P = 0: eleven empty fields, no launch."""
+    params = random_gaussians(np.random.default_rng(0), n=1, device=cuda)
+    empty = GaussianParams(**{g: getattr(params, g).detach()[:0]
+                              for g in PARAM_GROUPS[:-1]},
+                           exposure=params.exposure.detach(), sh_degree=3)
+    cam = ring_camera_batch(1, 120, 200, device=cuda).view(0)
+    n0 = preprocess_cuda.launches
+    with torch.no_grad():
+        got = preprocess(empty, cam, active_sh_degree=3)
+        want = preprocess_plain(empty, cam, active_sh_degree=3)
+    assert preprocess_cuda.launches == n0
+    assert not any(_fields_equal(got, want).values())
+    assert got.visible.shape == (0,) and got.rect_min.shape == (0, 2)
+
+
+@pytest.mark.cuda
+def test_preprocess_kernel_rejects_what_it_cannot_take(cuda):
+    """A float64 group, a camera left on the CPU, a mask of another dtype
+    and an SH degree the coefficients do not hold raise."""
+    params = random_gaussians(np.random.default_rng(0), n=256, device=cuda)
+    cam = ring_camera_batch(1, 120, 200, device=cuda).view(0)
+    groups = {g: getattr(params, g).detach() for g in PARAM_GROUPS}
+    with torch.no_grad():
+        bad = GaussianParams(**(groups | {"xyz": groups["xyz"].double()}),
+                             sh_degree=3)
+        with pytest.raises(TypeError, match="xyz"):
+            preprocess(bad, cam, active_sh_degree=3)
+        cpu_cam = cam.replace(world_view=cam.world_view.cpu())
+        with pytest.raises(TypeError, match="world_view"):
+            preprocess(params, cpu_cam, active_sh_degree=3)
+        with pytest.raises(TypeError, match="alive"):
+            preprocess(params, cam, active_sh_degree=3,
+                       alive=torch.ones(256, device=cuda))
+        deg1 = GaussianParams(**(groups | {
+            "features_rest": groups["features_rest"][:, :3]}), sh_degree=1)
+        with pytest.raises(ValueError, match="SH degree"):
+            preprocess(deg1, cam, active_sh_degree=2)
+
+
+@pytest.mark.cuda
+def test_preprocess_takes_the_plain_graph_under_autograd(cuda):
+    """Grad mode with leaves that require grad, and forward-AD duals under
+    ``no_grad`` (the LM solver's J·v), run the plain graph: kernel H is not
+    launched, the plain calls are counted, gradients and tangents flow, and
+    the values are kernel H's."""
+    params = random_gaussians(np.random.default_rng(1), n=4096, spread=1.5,
+                              device=cuda)
+    cam = ring_camera_batch(1, 120, 200, device=cuda).view(0)
+    with torch.no_grad():
+        want = preprocess(params, cam, active_sh_degree=3)
+    n0, p0 = preprocess_cuda.launches, projection.preprocess_plain_cuda_calls
+    got = preprocess(params, cam, active_sh_degree=3)
+    assert got.color.requires_grad
+    (g,) = torch.autograd.grad(got.color.sum(), params.features_dc)
+    assert bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
+    gen = torch.Generator(cuda).manual_seed(2)
+    groups = {k: v.detach() for k, v in params.groups().items()}
+    with torch.no_grad(), fwAD.dual_level():
+        dual = with_groups(params, {
+            k: fwAD.make_dual(v, torch.randn(v.shape, device=cuda,
+                                             generator=gen))
+            for k, v in groups.items()})
+        jv = preprocess(dual, cam, active_sh_degree=3)
+        primal, tangent = fwAD.unpack_dual(jv.mean2d)
+    assert tangent is not None and float(tangent.abs().sum()) > 0
+    assert preprocess_cuda.launches == n0
+    assert projection.preprocess_plain_cuda_calls == p0 + 2
+    detached = got.replace(**{f: getattr(got, f).detach()
+                              for f in ("mean2d", "conic", "color",
+                                        "opacity", "depth", "invdepth")})
+    assert not any(_fields_equal(detached, want).values())
+    assert torch.equal(primal.view(torch.int32),
+                       want.mean2d.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_kernel_h_launches_per_render_and_none_in_train_step(cuda):
+    """One launch per ``render`` and per ``batch_render`` view under
+    ``no_grad``; none in ``train_step`` (its preprocess needs autograd)."""
+    params = random_gaussians(np.random.default_rng(4), n=4096, spread=1.5,
+                              device=cuda)
+    cams = ring_camera_batch(3, 120, 200, device=cuda)
+    bg = torch.zeros(3, device=cuda)
+    n0 = preprocess_cuda.launches
+    with torch.no_grad():
+        render(params, cams.view(0), bg)
+        batch_render(params, cams, bg)
+    assert preprocess_cuda.launches == n0 + 4
+    p0 = projection.preprocess_plain_cuda_calls
+    train_step(params, GaussianAux.zeros(4096, device=cuda),
+               init_adam(params), cams.take(slice(0, 1)), bg, 100, 1.0, 0.0,
+               rcfg=RasterConfig(), opt=OptimizationParams(),
+               active_sh_degree=3, use_exp=False, sparse_adam=False,
+               update_stats=True)
+    torch.cuda.synchronize()
+    assert preprocess_cuda.launches == n0 + 4
+    assert projection.preprocess_plain_cuda_calls == p0 + 1

@@ -5,9 +5,12 @@ the CPU. Tolerances: float fields atol 1e-6 (the two frameworks round a few
 intermediate products differently, a few ulp); integer fields and masks
 exactly equal."""
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
+import torch.autograd.forward_ad as fwAD
 
 import jax.numpy as jnp
 
@@ -19,7 +22,9 @@ from gslm_tpu.utils.synthetic import random_gaussians as j_random_gaussians
 from gslm_tpu.utils.synthetic import ring_camera_batch as j_ring_camera_batch
 from gslm_tpu_torch.models.cameras import camera_from_arrays
 from gslm_tpu_torch.models.gaussians import PARAM_GROUPS, params_from_numpy
+from gslm_tpu_torch.ops import projection
 from gslm_tpu_torch.ops import sh as t_sh
+from gslm_tpu_torch.ops.projection import needs_autograd
 from gslm_tpu_torch.ops.projection import preprocess as t_preprocess
 from gslm_tpu_torch.utils.synthetic import make_camera, random_gaussians
 from gslm_tpu_torch.utils.synthetic import ring_camera_batch
@@ -132,3 +137,69 @@ def test_sh_degree_4_matches_jax():
         np.testing.assert_allclose(getattr(ts, f).detach().numpy(),
                                    np.asarray(getattr(js, f)), atol=1e-6,
                                    err_msg=f)
+
+
+def _dispatch_inputs(case):
+    """(context, the tensors ``preprocess`` would read, whether the plain
+    graph's autograd is needed) for one case of the dispatch rule."""
+    params = random_gaussians(np.random.default_rng(0), n=16, device="cpu")
+    cam = ring_camera_batch(1, 24, 40, device="cpu").view(0)
+    offset = torch.zeros(16, 2, requires_grad=case.endswith("offset"))
+    inputs = projection._inputs(params, cam, offset if "offset" in case
+                                else None, None)
+    if case.startswith("dual"):
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.no_grad())
+        stack.enter_context(fwAD.dual_level())
+        if case == "dual":
+            xyz = fwAD.make_dual(params.xyz.detach(), torch.ones(16, 3))
+            inputs = (xyz,) + inputs[1:]
+        else:                         # a dual level with no dual in it
+            inputs = tuple(None if t is None else t.detach() for t in inputs)
+        return stack, inputs, case == "dual"
+    ctx = {"no_grad": torch.no_grad(), "inference": torch.inference_mode(),
+           "grad": contextlib.nullcontext(),
+           "grad_detached": contextlib.nullcontext(),
+           "grad_offset": contextlib.nullcontext(),
+           "no_grad_offset": torch.no_grad()}[case]
+    if case == "grad_detached":
+        inputs = tuple(None if t is None else t.detach() for t in inputs)
+    return ctx, inputs, case in ("grad", "grad_offset")
+
+
+@pytest.mark.parametrize("case", ["no_grad", "inference", "grad",
+                                  "grad_detached", "grad_offset",
+                                  "no_grad_offset", "dual", "dual_level"])
+def test_needs_autograd_is_the_dispatch_rule(case):
+    """Kernel H takes exactly the calls that need no autograd: grad mode
+    off (``no_grad``, ``inference_mode``) or no input that requires grad,
+    and no forward-AD tangent. Parameters (``nn.Parameter``, requiring
+    grad) under grad mode, a ``mean2d_offset`` that requires grad, and a
+    dual tensor under ``no_grad`` (the LM solver's J·v) need the plain
+    graph; a dual level alone does not."""
+    ctx, inputs, want = _dispatch_inputs(case)
+    with ctx:
+        assert needs_autograd(inputs) is want
+    assert needs_autograd([None, torch.zeros(2)]) is False
+
+
+def test_cpu_tensors_take_the_plain_graph():
+    """On CPU tensors ``preprocess`` runs the plain graph under any grad
+    mode: no kernel launch and no plain CUDA call counted, and its fields
+    are ``preprocess_plain``'s bit for bit."""
+    params = random_gaussians(np.random.default_rng(2), n=96, device="cpu")
+    cam = ring_camera_batch(1, 48, 64, device="cpu").view(0)
+    n0 = projection.preprocess_cuda.launches
+    p0 = projection.preprocess_plain_cuda_calls
+    with torch.no_grad():
+        got = t_preprocess(params, cam, active_sh_degree=3,
+                           antialiasing=True, alive=params.alive)
+        want = projection.preprocess_plain(params, cam, active_sh_degree=3,
+                                           antialiasing=True,
+                                           alive=params.alive)
+    graded = t_preprocess(params, cam, active_sh_degree=3)
+    assert graded.color.requires_grad
+    assert projection.preprocess_cuda.launches == n0
+    assert projection.preprocess_plain_cuda_calls == p0
+    for f in FLOAT_FIELDS + INT_FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
